@@ -1,0 +1,103 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``fgnn_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
+the source and the flags, and loaded with ``ctypes``. A library with a plain
+C interface builds in seconds, where one that includes PyTorch's headers
+takes minutes, so every kernel of the package goes this way.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines that have no ``nvcc``.
+
+Each kernel wrapper adds one to ``launches[name]`` where it launches its
+kernel, and nowhere else, so a run can show that its main path went through
+the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# kernel name -> launches since the last reset_launches()
+launches: Dict[str, int] = {}
+# kernel name -> seconds the nvcc build took in this process (0.0 if the
+# library was already built)
+build_seconds: Dict[str, float] = {}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def count_launch(name: str) -> None:
+    launches[name] = launches.get(name, 0) + 1
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (neither on PATH nor under $CUDA_HOME/bin): the "
+            "CUDA kernels of fgnn_tpu_torch are built from csrc/ at first use"
+        )
+    return path
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    so = library_path(name)
+    t0 = time.perf_counter()
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {name}.cu (rc {r.returncode}):\n"
+                    f"{' '.join(cmd)}\n{r.stdout}{r.stderr}"
+                )
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    build_seconds[name] = time.perf_counter() - t0
+    lib = ctypes.CDLL(so)
+    _libs[name] = lib
+    launches.setdefault(name, 0)
+    return lib
