@@ -6,24 +6,33 @@
 Phases, none of which catches a failure (any failure exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit
      (nvidia-smi) and turns TF32 off for float32 products;
-  2. build: compiles the row-gather kernel from fgnn_tpu_torch/csrc with
-     nvcc for sm_90a;
-  3. kernel against its plain version: bit-equal (torch.equal) at the main
-     path's two shapes and on a matrix of dtypes, widths, alignments and
-     id patterns; both timed with CUDA events at the main-path shapes;
-  4. small input: the port's training step on the card against the same
-     step on the CPU, from the same parameters and injected uniforms;
+  2. build: compiles both kernels (row gather, streaming pass) from
+     fgnn_tpu_torch/csrc with nvcc for sm_90a, one nvcc each, together;
+  3. row gather against its plain version: bit-equal (torch.equal) at the
+     main path's two shapes and on a matrix of dtypes, widths, alignments
+     and id patterns; both timed with CUDA events at the main-path shapes;
+  4. small input: the port's GraphSAGE training step on the card against
+     the same step on the CPU, from the same parameters and injected
+     uniforms;
   5. the main path: GraphSAGE arch1 on the 1M-node synthetic graph at the
      benchmark's configuration (bench.py), two epochs through
-     OneChipEngine, with the kernel's launch count taken over that run.
-Prints a JSON line of kernel results, then as its last line
-``{"ok": true, "device": {...}}``.
+     OneChipEngine, with the row gather's launch count taken over that run;
+  6. streaming pass against its plain version: bit-equal on ragged, narrow,
+     misaligned and one-row inputs and at the full [524288, 128] at each
+     chunk, timed at the full shape;
+  7. the gather campaign's stream and kernel phases, in process, with the
+     streaming kernel's launch count taken over that run;
+  8. small input, GCN with the 3-layer fanout: card against CPU as in 4;
+  9. GCN at the source paper's Table-1 configuration ([5, 10, 15], batch
+     8000, hidden 256) on the same graph: two epochs through run_epochs,
+     the row gather's launch count over them, the first step's sampled
+     edges against the NumPy sampler, then evaluate() on the test set.
+The 1M-node graph is built once and shared by 5 and 9. Prints a JSON line
+of kernel results, then as its last line ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
 import os
-import statistics
-import subprocess
 import sys
 import time
 
@@ -40,6 +49,7 @@ MAIN_SHAPES = {
 JAX_EPOCH1_LOSS = 3.658
 JAX_EDGES_PER_EPOCH = (22_494_030, 22_511_196)
 EXPECTED_EDGES = 22.5e6
+NUM_CLASS = 172
 
 
 def check(ok, msg):
@@ -71,30 +81,10 @@ def check_equal(table, ids, label):
     return float((out.double() - ref.double()).abs().max())
 
 
-def median_ms(fns, reps=20, warm=3):
-    """Median CUDA-event time of each fn, run in turns."""
-    import torch
-
-    for fn in fns:
-        for _ in range(warm):
-            fn()
-    torch.cuda.synchronize()
-    times = [[] for _ in fns]
-    for _ in range(reps):
-        for fn, ts in zip(fns, times):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            ts.append(a.elapsed_time(b))
-    return [statistics.median(ts) for ts in times]
-
-
 def kernel_phase(dev, card):
     import torch
     from fgnn_tpu_torch.ops.gather import gather_rows, gather_rows_reference
+    from fgnn_tpu_torch.tools.gather_campaign import median_ms
 
     gen = torch.Generator(dev).manual_seed(0)
     max_err = 0.0
@@ -147,7 +137,7 @@ def kernel_phase(dev, card):
     return max_err, timing
 
 
-def small_input_phase(dev):
+def small_input_phase(dev, model="graphsage", fanout=(10, 3)):
     """The port's step on the card agrees with the same step on the CPU."""
     import torch
     from fgnn_tpu.config import RunConfig, SampleType
@@ -157,13 +147,15 @@ def small_input_phase(dev):
 
     ds = make_synthetic_dataset(num_node=2000, avg_degree=8, feat_dim=32,
                                 num_class=8, train_frac=0.5, seed=42)
-    cfg = RunConfig(model="graphsage", fanout=(10, 3), batch_size=128,
+    cfg = RunConfig(model=model, fanout=fanout, batch_size=128,
                     num_hidden=32, sample_type=SampleType.KHOP2, dropout=0.0,
                     lr=0.003, compute_dtype="float32")
     cpu = OneChipEngine(cfg, ds, "cpu")
     gpu = OneChipEngine(cfg, ds, dev)
     gpu.model.load_state_dict(cpu.model.state_dict())
-    check(cpu.plan.tier_layout is not None, "the tiered hop must engage")
+    # GraphSAGE runs the tiered no-dedup last hop, GCN dedups every hop
+    check((cpu.plan.tier_layout is not None) == (model == "graphsage"),
+          f"{model}: tier layout {cpu.plan.tier_layout}")
     gen = torch.Generator().manual_seed(1)
     shapes = uniform_shapes(cpu.plan, cfg.sample_type, cpu.dedup_last_hop)
     for seeds, n, step in cpu.shuffler.batches(0):
@@ -183,19 +175,25 @@ def small_input_phase(dev):
             break
 
 
-def main_path_phase(dev, card):
-    import torch
-    from fgnn_tpu.config import RunConfig, SampleType
+def big_dataset():
+    """The 1M-node / avg-degree-15 synthetic graph of bench.py, built once."""
     from fgnn_tpu.data import make_synthetic_dataset
-    from fgnn_tpu_torch.engine import OneChipEngine
-    from fgnn_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
     ds = make_synthetic_dataset(num_node=1_000_000, avg_degree=15,
-                                feat_dim=128, num_class=172, train_frac=0.25,
-                                seed=0)
+                                feat_dim=128, num_class=NUM_CLASS,
+                                train_frac=0.25, seed=0)
     print(f"  dataset: {ds.num_node} nodes, {ds.num_edge} edges "
           f"({time.perf_counter() - t0:.1f} s on the host)")
+    return ds
+
+
+def main_path_phase(dev, card, ds):
+    import torch
+    from fgnn_tpu.config import RunConfig, SampleType
+    from fgnn_tpu_torch.engine import OneChipEngine
+    from fgnn_tpu_torch.ops import cuda_lib
+
     cfg = RunConfig(model="graphsage", fanout=(25, 10), batch_size=8000,
                     num_hidden=256, sample_type=SampleType.KHOP2, dropout=0.5,
                     lr=0.003, compute_dtype="bfloat16")
@@ -229,12 +227,149 @@ def main_path_phase(dev, card):
     l0, l1 = results[0]["loss"], results[1]["loss"]
     check(math.isfinite(l0) and math.isfinite(l1), f"losses {l0}, {l1}")
     check(l1 < l0, f"epoch-1 loss {l1} is not below epoch 0's {l0}")
-    check(l1 < math.log(172), f"epoch-1 loss {l1} is not below ln 172")
+    check(l1 < math.log(NUM_CLASS), f"epoch-1 loss {l1} is not below ln 172")
     for r in results:
         rel = abs(r["sampled_edges"] - EXPECTED_EDGES) / EXPECTED_EDGES
         check(rel < 0.01, f"sampled_edges {r['sampled_edges']} off by {rel:.3%}")
     # per step: feature gather, layer-1 dst_invperm, layer-2 gather_src
     check(launches == 3 * steps, f"{launches} launches for {steps} steps")
+    return launches
+
+
+def stream_check_phase(dev, card):
+    """The streaming kernel against plain ``x + 1``, bit for bit; timed at
+    the full shape at each chunk. Returns (max |diff|, {chunk: (ms, ms)})."""
+    import torch
+    from fgnn_tpu_torch.ops.stream import stream_add_one, stream_add_one_reference
+    from fgnn_tpu_torch.tools.gather_campaign import (STREAM_CHUNKS,
+                                                      STREAM_SHAPE, median_ms)
+
+    gen = torch.Generator(dev).manual_seed(3)
+    base = torch.randn(3001 * 128 + 1, generator=gen, device=dev)
+    cases = [
+        ("ragged N=3001 D=128", torch.randn((3001, 128), generator=gen,
+                                            device=dev), 512),
+        ("D=3", torch.randn((5000, 3), generator=gen, device=dev), 512),
+        ("D=3 chunk 7", torch.randn((5000, 3), generator=gen, device=dev), 7),
+        ("misaligned base", base[1:].view(3001, 128), 512),
+        ("N=1", torch.randn((1, 128), generator=gen, device=dev), 512),
+    ]
+    full = torch.randn(STREAM_SHAPE, generator=gen, device=dev)
+    cases += [(f"full {STREAM_SHAPE} chunk {c}", full, c) for c in STREAM_CHUNKS]
+    max_err = 0.0
+    for label, x, chunk in cases:
+        out = stream_add_one(x, chunk)
+        ref = stream_add_one_reference(x)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"stream_add_one != x + 1 for {label}")
+        max_err = max(max_err, float((out - ref).abs().max()))
+    print(f"  {len(cases)} stream_add_one-vs-plain cases bit-equal, "
+          f"max |diff| {max_err}")
+    n, d = STREAM_SHAPE
+    moved = 2 * n * d * 4
+    timing = {}
+    for chunk in STREAM_CHUNKS:
+        k_ms, p_ms = median_ms([lambda: stream_add_one(full, chunk),
+                                lambda: stream_add_one_reference(full)])
+        timing[chunk] = (k_ms, p_ms)
+        print(f"  [{n}, {d}] f32 chunk {chunk}: kernel {k_ms:.4f} ms "
+              f"({moved / k_ms / 1e6:.1f} GB/s r+w), plain x + 1 "
+              f"{p_ms:.4f} ms ({moved / p_ms / 1e6:.1f} GB/s) ({card})")
+    return max_err, timing
+
+
+def campaign_phase(dev, card):
+    """The gather campaign's stream and kernel phases in this process; the
+    streaming kernel's launches are counted over them."""
+    from fgnn_tpu_torch.ops import cuda_lib
+    from fgnn_tpu_torch.tools import gather_campaign
+
+    cuda_lib.reset_launches()
+    stream = gather_campaign.stream_phase(dev, card)
+    launches = cuda_lib.launches.get("stream_add_one", 0)
+    check(launches > 0, "the campaign's stream phase launched no kernel")
+    gather = gather_campaign.kernel_phase(dev, card)
+    print(f"  stream_add_one launches in the stream phase: {launches}")
+    return launches, stream, gather
+
+
+def numpy_first_step_edges(ds, eng, seeds, num_seeds):
+    """Sampled edges of one batch by the port's NumPy sampler, with a
+    np.unique dedup per hop: the independent count the card is held to."""
+    import numpy as np
+    from fgnn_tpu_torch.ops.reference_impl import np_sample_hop_vec
+
+    rng = np.random.default_rng(0)
+    indptr, indices = np.asarray(ds.indptr), np.asarray(ds.indices)
+    cur = np.unique(seeds[:num_seeds])
+    edges = 0
+    for f in eng.plan.fanouts:
+        nbr, valid = np_sample_hop_vec(rng, indptr, indices, cur, f)
+        edges += int(valid.sum())
+        cur = np.union1d(cur, nbr[valid])
+    return edges
+
+
+def gcn_phase(dev, card, ds):
+    """GCN of the source paper's Table 1 (exp/table1/run.py: fanout 5 10
+    15) at full width: two epochs through run_epochs, then evaluate()."""
+    import torch
+    from fgnn_tpu.config import RunConfig, SampleType
+    from fgnn_tpu_torch.engine import OneChipEngine
+    from fgnn_tpu_torch.ops import cuda_lib
+
+    cfg = RunConfig(model="gcn", fanout=(5, 10, 15), batch_size=8000,
+                    num_hidden=256, sample_type=SampleType.KHOP2, dropout=0.5,
+                    lr=0.003, compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    eng = OneChipEngine(cfg, ds, dev)
+    print(f"  engine init {time.perf_counter() - t0:.1f} s; plan {eng.plan}")
+    check(eng.dedup_last_hop and eng.plan.tier_layout is None,
+          "GCN must dedup its last hop, untiered")
+
+    # the first step's batch, sampled apart from training, against NumPy
+    seeds_all, nums_all = eng.shuffler.epoch_arrays(0)
+    batch = eng.sample(torch.as_tensor(seeds_all[0], device=dev),
+                       int(nums_all[0]), torch.Generator(dev).manual_seed(1),
+                       eng.dedup_last_hop)
+    port_edges = int(sum(int(b.mask.sum()) for b in batch.blocks))
+    np_edges = numpy_first_step_edges(ds, eng, seeds_all[0], int(nums_all[0]))
+    rel = abs(port_edges - np_edges) / np_edges
+    print(f"  first step sampled edges: card {port_edges}, NumPy sampler "
+          f"{np_edges} ({rel:.3%}); per hop "
+          f"{[int(b.mask.sum()) for b in reversed(batch.blocks)]}; "
+          f"overflow {bool(batch.overflowed)}")
+    check(rel < 0.01, f"first-step edges {port_edges} vs NumPy {np_edges}")
+    check(not bool(batch.overflowed), "the first step's batch overflowed")
+    del batch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_lib.reset_launches()
+    results = eng.run_epochs(0, 2)
+    launches = cuda_lib.launches.get("gather_rows", 0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in results:
+        print(f"  epoch {r['epoch']}: loss {r['loss']:.4f} acc {r['acc']:.4f} "
+              f"sampled_edges {r['sampled_edges']} epoch_time "
+              f"{r['epoch_time']:.4f} s (run_epochs total / 2) mean step "
+              f"{r['epoch_time'] / r['num_step'] * 1e3:.2f} ms over "
+              f"{r['num_step']} steps ({card})")
+    steps = sum(r["num_step"] for r in results)
+    print(f"  gather_rows launches over the two epochs {launches}; overflow "
+          f"{eng.last_overflowed}; peak memory {peak} B ({card})")
+    t0 = time.perf_counter()
+    acc = eng.evaluate()
+    print(f"  evaluate() on the {len(ds.test_set)} test nodes: accuracy "
+          f"{acc:.4f} ({time.perf_counter() - t0:.2f} s)")
+
+    l0, l1 = results[0]["loss"], results[1]["loss"]
+    check(math.isfinite(l0) and math.isfinite(l1), f"losses {l0}, {l1}")
+    check(l1 < l0, f"epoch-1 loss {l1} is not below epoch 0's {l0}")
+    check(l1 < math.log(NUM_CLASS), f"epoch-1 loss {l1} is not below ln 172")
+    check(not eng.last_overflowed, "a GCN epoch overflowed its caps")
+    # per step: the feature gather and the three layers' gather_src
+    check(launches == 4 * steps, f"{launches} launches for {steps} steps")
+    check(1.0 / NUM_CLASS < acc <= 1.0, f"evaluate() accuracy {acc}")
     return launches
 
 
@@ -246,12 +381,11 @@ def main() -> int:
               "runs only on a CUDA device", file=sys.stderr)
         return 1
     from fgnn_tpu_torch.ops import cuda_lib
+    from fgnn_tpu_torch.tools.gather_campaign import card_name
 
-    print("[1/5] device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    t_start = time.perf_counter()
+    print("[1/9] device")
+    card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -262,30 +396,57 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/5] build")
-    cuda_lib.load("gather_rows")
-    print(f"  gather_rows built in {cuda_lib.build_seconds['gather_rows']:.2f} s"
-          f" -> {cuda_lib.library_path('gather_rows')}")
+    print("[2/9] build")
+    kernels = ("gather_rows", "stream_add_one")
+    cuda_lib.build(kernels)
+    for name in kernels:
+        print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
+              f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/5] kernel against plain version")
+    print("[3/9] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/5] small input: card against CPU")
+    print("[4/9] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/5] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
-    launches = main_path_phase(dev, card)
+    print("[5/9] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    ds = big_dataset()
+    sage_launches = main_path_phase(dev, card, ds)
+
+    print("[6/9] streaming pass against plain version")
+    s_err, s_timing = stream_check_phase(dev, card)
+
+    print("[7/9] gather campaign: stream and kernel phases")
+    s_launches, _, _ = campaign_phase(dev, card)
+
+    print("[8/9] small input, GCN [5, 10, 15]: card against CPU")
+    small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
+
+    print("[9/9] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    gcn_launches = gcn_phase(dev, card, ds)
+    print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     k_ms, p_ms = timing["feature gather"]
+    best = min(s_timing, key=lambda c: s_timing[c][0])
+    print(f"  stream_add_one ms/plain_ms below: chunk {best}, the fastest")
     print(json.dumps({"kernels": [{
         "name": "gather_rows",
         "route": "cuda",
         "source": "fgnn_tpu_torch/csrc/gather_rows.cu",
         "replaces": "fgnn_tpu/ops/pallas_gather2.py:131",
-        "launches": launches,
+        "launches": sage_launches + gcn_launches,
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "stream_add_one",
+        "route": "cuda",
+        "source": "fgnn_tpu_torch/csrc/stream_add_one.cu",
+        "replaces": "tools/gather_campaign.py:129",
+        "launches": s_launches,
+        "max_abs_err": s_err,
+        "ms": s_timing[best][0],
+        "plain_ms": s_timing[best][1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

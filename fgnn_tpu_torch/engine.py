@@ -3,15 +3,16 @@
 Sample, extract and train on one device with the feature table resident in
 device memory. The step is a plain per-step loop: sample -> feature gather
 (the Hopper row-gather kernel) -> labels -> train. Statistics stay on the
-device until the end of the epoch, which syncs once.
+device until the end of the run, which syncs once (:meth:`run_epochs`).
 
-Ported: the HBM-resident path. Not yet: host-resident features and the
-caches, evaluation, checkpoints, sanity checks and profiling (ROADMAP.md).
+Ported: the HBM-resident path for GraphSAGE and GCN, and evaluation. Not
+yet: host-resident features and the caches, checkpoints, sanity checks and
+profiling (ROADMAP.md).
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -26,12 +27,14 @@ from .ops.padding import make_plan
 from .ops.reference_impl import calibrate_caps
 from .ops.sampling import CSRGraph, multi_layer_sample
 from .parallel.shuffler import EpochShuffler
-from .train.loop import make_optimizer, train_step
+from .train.loop import eval_step, make_optimizer, train_step
 
 log = get_logger(__name__)
 
 # last-hop degree-tier candidates of the plan's tier search
 TIER_CANDIDATES = (4, 6, 8, 10, 12, 14, 16, 20)
+# seed offset of evaluation's own generator (the reference's key)
+EVAL_SEED_OFFSET = 12345
 # share of a CUDA device's memory the feature table may take; the rest
 # holds the graph, the batch's activations and the parameters
 FEAT_MEMORY_SHARE = 0.5
@@ -75,13 +78,24 @@ class OneChipEngine:
         )
 
         # --- static plan via NumPy calibration -----------------------------
-        # the tiered last hop serves the no-dedup path of uniform sampling
-        # without replacement, which is all this engine runs
+        # the feature table is on the device, so the last hop skips dedup
+        # (duplicate feature-row reads cost less than the dedup sort) and is
+        # degree-tiered, EXCEPT for GCN: its 1/sqrt(out-degree) source
+        # normalisation counts block occurrences, which skipping dedup
+        # changes, and it reads those counts from the dedup sort
+        gcn = cfg.model == "gcn"
+        self.dedup_last_hop = gcn
+        self.with_out_degrees = gcn
         fan_sampling = list(reversed(cfg.fanout))
-        caps, tier_stats = calibrate_caps(
-            indptr, indices, np.asarray(ds.train_set), cfg.batch_size,
-            fan_sampling, seed=cfg.seed, tier_candidates=TIER_CANDIDATES,
-        )
+        tier_stats = None
+        if gcn:
+            caps = calibrate_caps(indptr, indices, np.asarray(ds.train_set),
+                                  cfg.batch_size, fan_sampling, seed=cfg.seed)
+        else:
+            caps, tier_stats = calibrate_caps(
+                indptr, indices, np.asarray(ds.train_set), cfg.batch_size,
+                fan_sampling, seed=cfg.seed, tier_candidates=TIER_CANDIDATES,
+            )
         self.plan = make_plan(cfg.batch_size, cfg.fanout, ds.num_node,
                               unique_caps=caps, tier_stats=tier_stats)
         log.info("sample plan: %s", self.plan)
@@ -112,12 +126,21 @@ class OneChipEngine:
         self.dst_caps = tuple(reversed(self.plan.num_input_cap))
         self.sample_gen = torch.Generator(dev).manual_seed(cfg.seed)
         self.dropout_gen = torch.Generator(dev).manual_seed(cfg.seed + 0x5eed)
-        # feature table on the device: the last hop skips dedup (duplicate
-        # feature-row reads cost less than the dedup sort at these sizes)
-        self.dedup_last_hop = False
         self.last_overflowed = False
 
     # ------------------------------------------------------------------
+    def sample(self, seeds: torch.Tensor, num_seeds,
+               rand: Union[torch.Generator, Sequence[torch.Tensor]],
+               dedup_last_hop: bool):
+        """One batch of ``multi_layer_sample`` under the engine's plan;
+        ``rand`` is a generator or one uniforms tensor per hop
+        (``ops.sampling.uniform_shapes``)."""
+        return multi_layer_sample(
+            self.graph, seeds, num_seeds, self.plan, self.cfg.sample_type,
+            dedup_last_hop=dedup_last_hop,
+            with_out_degrees=self.with_out_degrees, rand=rand,
+        )
+
     def step(self, seeds: torch.Tensor, num_seeds,
              rand: Optional[Sequence[torch.Tensor]] = None):
         """One training step on a ``[seed_cap]`` int32 seed tensor.
@@ -128,11 +151,9 @@ class OneChipEngine:
         sampled_edges, overflowed)``.
         """
         cfg = self.cfg
-        batch = multi_layer_sample(
-            self.graph, seeds, num_seeds, self.plan, cfg.sample_type,
-            dedup_last_hop=self.dedup_last_hop,
-            rand=self.sample_gen if rand is None else rand,
-        )
+        batch = self.sample(seeds, num_seeds,
+                            self.sample_gen if rand is None else rand,
+                            self.dedup_last_hop)
         feats = self.feat_gather(self.feat_dev, batch.input_nodes)
         labels = label_gather(self.label_dev, batch.output_nodes)
         loss, acc = train_step(
@@ -158,8 +179,10 @@ class OneChipEngine:
             raise RuntimeError(msg)
         log.warning(msg)
 
-    def run_epoch(self, epoch: int) -> dict:
-        t0 = time.perf_counter()
+    def _dispatch_epoch(self, epoch: int):
+        """Every step of one epoch, with no host sync: the ``[num_step, 4]``
+        device stats (loss, acc, edges, overflow) and the host weights of
+        the steps (1 where the batch is not empty)."""
         seeds_all, nums_all = self.shuffler.epoch_arrays(epoch)
         seeds_dev = torch.as_tensor(seeds_all, device=self.device)
         nums_dev = torch.as_tensor(nums_all, device=self.device)
@@ -168,16 +191,61 @@ class OneChipEngine:
             loss, acc, n_edges, ovf = self.step(seeds_dev[i], nums_dev[i])
             stats.append(torch.stack([loss.float(), acc.float(),
                                       n_edges.float(), ovf.float()]))
-        w = torch.as_tensor(nums_all > 0, dtype=torch.float32)
-        s = torch.stack(stats).cpu()                  # the one sync
-        wsum = max(float(w.sum()), 1.0)
-        epoch_time = time.perf_counter() - t0
-        self._surface_overflow(epoch, bool(s[:, 3].any()))
-        return {
-            "epoch": epoch,
-            "epoch_time": epoch_time,
-            "loss": float((s[:, 0] * w).sum() / wsum),
-            "acc": float((s[:, 1] * w).sum() / wsum),
-            "num_step": self.shuffler.num_step,
-            "sampled_edges": int(s[:, 2].double().sum()),
-        }
+        return torch.stack(stats), torch.as_tensor(nums_all > 0,
+                                                   dtype=torch.float32)
+
+    def run_epochs(self, start_epoch: int, n: int) -> List[dict]:
+        """``n`` epochs back to back with one host sync at the end; the same
+        math and dicts as ``n`` :meth:`run_epoch` calls. Each epoch reports
+        ``epoch_time`` as the total over ``n``, and surfaces its overflow."""
+        t0 = time.perf_counter()
+        epochs = range(start_epoch, start_epoch + n)
+        dispatched = [self._dispatch_epoch(e) for e in epochs]
+        stats = torch.stack([s for s, _ in dispatched]).cpu()   # the one sync
+        epoch_time = (time.perf_counter() - t0) / n
+        out = []
+        for e, s, (_, w) in zip(epochs, stats, dispatched):
+            wsum = max(float(w.sum()), 1.0)
+            self._surface_overflow(e, bool(s[:, 3].any()))
+            out.append({
+                "epoch": e,
+                "epoch_time": epoch_time,
+                "loss": float((s[:, 0] * w).sum() / wsum),
+                "acc": float((s[:, 1] * w).sum() / wsum),
+                "num_step": self.shuffler.num_step,
+                "sampled_edges": int(s[:, 2].double().sum()),
+            })
+        return out
+
+    def run_epoch(self, epoch: int) -> dict:
+        return self.run_epochs(epoch, 1)[0]
+
+    def evaluate(self, node_set: Optional[np.ndarray] = None,
+                 rand: Optional[Callable[[int], Sequence[torch.Tensor]]] = None
+                 ) -> float:
+        """Accuracy over ``node_set`` (the test set by default): the
+        unweighted mean of the per-batch accuracies, dropout off.
+
+        Batches are sampled with last-hop dedup, as the reference's
+        evaluation does for every model, from a generator of their own
+        (seed ``cfg.seed + EVAL_SEED_OFFSET``), so evaluating leaves the
+        training generators where they were. ``rand(step)`` injects the
+        uniforms of a step instead (``uniform_shapes`` with dedup)."""
+        cfg = self.cfg
+        nodes = np.asarray(node_set if node_set is not None
+                           else self.ds.test_set)
+        gen = torch.Generator(self.device).manual_seed(
+            cfg.seed + EVAL_SEED_OFFSET)
+        sh = EpochShuffler(nodes, cfg.batch_size, self.plan.num_input_cap[0])
+        accs = []
+        for seeds, n, step in sh.batches(0):
+            batch = self.sample(torch.as_tensor(seeds, device=self.device), n,
+                                gen if rand is None else rand(step),
+                                dedup_last_hop=True)
+            feats = self.feat_gather(self.feat_dev, batch.input_nodes)
+            labels = label_gather(self.label_dev, batch.output_nodes)
+            accs.append(eval_step(self.model, batch, feats, labels,
+                                  self.dst_caps, cfg.batch_size))
+        if not accs:
+            return 0.0
+        return float(torch.stack(accs).cpu().double().mean())   # the one sync

@@ -102,3 +102,14 @@ def in_degrees(block: Block, dst_cap: int) -> torch.Tensor:
     dst = torch.where(mask, block.dst_local, dst_cap).long()
     return torch.zeros(dst_cap + 1, device=mask.device).index_add_(
         0, dst, mask.float())[:dst_cap]
+
+
+def out_degrees(block: Block, src_cap: int) -> torch.Tensor:
+    """Valid out-edge count per src, float32 [src_cap]: the sampler's
+    ``src_out_deg`` where it emitted one, else a masked scatter-add."""
+    if block.src_out_deg is not None:
+        return block.src_out_deg[:src_cap].float()
+    mask = block.mask
+    src = torch.where(mask, block.src_local, src_cap).long()
+    return torch.zeros(src_cap + 1, device=mask.device).index_add_(
+        0, src, mask.float())[:src_cap]

@@ -1,4 +1,4 @@
-"""GNN models (port of ``fgnn_tpu/models/gnn.py``): GraphSAGE so far.
+"""GNN models (port of ``fgnn_tpu/models/gnn.py``): GraphSAGE and GCN so far.
 
 Each layer consumes one sampled :class:`Block` (input side first) and the
 full src-space features ``h`` [src_cap, D]; destination rows are the prefix
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sampling import Block, SampledBatch
-from .aggregate import gather_src, segment_agg
+from .aggregate import gather_src, in_degrees, out_degrees, segment_agg
 
 
 def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]):
@@ -72,7 +72,46 @@ class SAGEConv(nn.Module):
         return out
 
 
-class GraphSAGE(nn.Module):
+class GraphConv(nn.Module):
+    """DGL GraphConv, norm='both', allow_zero_in_degree.
+
+    Submodule ``weight`` (a bias-free Linear) and parameter ``bias`` carry
+    the flax names, so ``GraphConv_i/weight/kernel`` maps to
+    ``layers.i.weight.weight``. As in the reference, ``h * rsqrt(deg)``
+    promotes a bf16 product to float32: the aggregation, the bias and the
+    layer's output are float32, and the next layer's product casts back.
+    """
+
+    def __init__(self, in_dim: int, out_dim: int, activation=None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.weight = nn.Linear(in_dim, out_dim, bias=False)
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+        self.activation = activation
+        self.dtype = dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        lecun_normal_(self.weight.weight, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, block: Block, h: torch.Tensor, dst_cap: int) -> torch.Tensor:
+        src_cap = h.shape[0]
+        h = _dense(self.weight, h, self.dtype)
+        h = h * torch.rsqrt(out_degrees(block, src_cap).clamp(min=1))[:, None]
+        agg = segment_agg(gather_src(h, block), block, dst_cap, mode="sum")
+        agg = agg * torch.rsqrt(in_degrees(block, dst_cap).clamp(min=1))[:, None]
+        agg = agg + self.bias
+        if self.activation is not None:
+            agg = self.activation(agg)
+        return agg
+
+
+class _ConvStack(nn.Module):
+    """``num_layers`` convs of class ``conv``, ReLU after all but the last,
+    dropout on the input of all but the first."""
+
+    conv = None
+
     def __init__(self, in_dim: int, hidden_dim: int, num_classes: int,
                  num_layers: int, dropout: float = 0.5,
                  dtype: Optional[torch.dtype] = None,
@@ -80,9 +119,9 @@ class GraphSAGE(nn.Module):
         super().__init__()
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [num_classes]
         self.layers = nn.ModuleList(
-            SAGEConv(dims[i], dims[i + 1],
-                     activation=F.relu if i < num_layers - 1 else None,
-                     dtype=dtype)
+            self.conv(dims[i], dims[i + 1],
+                      activation=F.relu if i < num_layers - 1 else None,
+                      dtype=dtype)
             for i in range(num_layers)
         )
         self.dropout = dropout
@@ -102,6 +141,14 @@ class GraphSAGE(nn.Module):
         return h
 
 
+class GraphSAGE(_ConvStack):
+    conv = SAGEConv
+
+
+class GCN(_ConvStack):
+    conv = GraphConv
+
+
 def build_model(name: str, in_dim: int, hidden: int, num_classes: int,
                 num_layers: int, dropout: float = 0.5,
                 dtype: Optional[torch.dtype] = None,
@@ -109,10 +156,11 @@ def build_model(name: str, in_dim: int, hidden: int, num_classes: int,
     """dtype: compute dtype (e.g. torch.bfloat16); params stay float32.
     ``generator`` draws the initial weights."""
     name = name.lower()
-    if name in ("graphsage", "sage"):
-        return GraphSAGE(in_dim, hidden, num_classes, num_layers, dropout,
-                         dtype=dtype, generator=generator)
-    if name in ("gcn", "pinsage", "gat"):
+    stacks = {"graphsage": GraphSAGE, "sage": GraphSAGE, "gcn": GCN}
+    if name in stacks:
+        return stacks[name](in_dim, hidden, num_classes, num_layers, dropout,
+                            dtype=dtype, generator=generator)
+    if name in ("pinsage", "gat"):
         raise NotImplementedError(
             f"model {name!r} is not ported to fgnn_tpu_torch yet "
             "(ROADMAP.md queue A)"

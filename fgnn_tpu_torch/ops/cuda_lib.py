@@ -6,6 +6,7 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 the source and the flags, and loaded with ``ctypes``. A library with a plain
 C interface builds in seconds, where one that includes PyTorch's headers
 takes minutes, so every kernel of the package goes this way.
+:func:`build` compiles several sources at once, one ``nvcc`` each.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines that have no ``nvcc``.
@@ -23,7 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -37,7 +38,8 @@ NVCC_FLAGS = (
 # kernel name -> launches since the last reset_launches()
 launches: Dict[str, int] = {}
 # kernel name -> seconds the nvcc build took in this process (0.0 if the
-# library was already built)
+# library was already built); sources built together by build() share the
+# wall time of that build
 build_seconds: Dict[str, float] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -72,32 +74,51 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    so = library_path(name)
+def build(names: Sequence[str]) -> None:
+    """Compile every missing library of ``names`` and load all of them. The
+    ``nvcc`` processes run together; a failure raises after all have ended."""
+    todo = [n for n in names if n not in _libs]
     t0 = time.perf_counter()
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, f"{name}.cu")]
-        try:
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name}.cu (rc {r.returncode}):\n"
-                    f"{' '.join(cmd)}\n{r.stdout}{r.stderr}"
-                )
-            os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-        finally:
+    jobs = []
+    try:
+        for name in todo:
+            so = library_path(name)
+            if os.path.exists(so):
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC_DIR, f"{name}.cu")]
+            jobs.append((name, so, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, so, tmp, cmd, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):"
+                              f"\n{' '.join(cmd)}\n{log}")
+            else:
+                os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.remove(tmp)
-    build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(so)
-    _libs[name] = lib
-    launches.setdefault(name, 0)
-    return lib
+    seconds = time.perf_counter() - t0
+    for name in todo:
+        build_seconds[name] = seconds
+        _libs[name] = ctypes.CDLL(library_path(name))
+        launches.setdefault(name, 0)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _libs:
+        build([name])
+    return _libs[name]

@@ -25,7 +25,8 @@ def unique_and_remap(
     num_seeds: torch.Tensor,
     neighbors: torch.Tensor,
     out_cap: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    with_counts: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Fused FillWithDuplicates + GPUMapEdges in one sort.
 
     Sorts the concatenated ``[seeds | neighbors]`` once by the packed int64
@@ -37,6 +38,12 @@ def unique_and_remap(
 
     Returns ``(unique [out_cap] int32 -1-padded seeds-first, num_unique,
     nbr_local [E] int32 (-1 for padding and clipped ids), overflowed)``.
+
+    ``with_counts=True`` appends ``counts [out_cap] int32``, the block's src
+    out-degree that GCN's norm='both' needs: each unique local's group size
+    in the same sort, less the seed itself for a seed-led group (a duplicate
+    seed in the group still counts, as in the reference); 0 for padded and
+    duplicate seed slots, and for leaders clipped at ``out_cap``.
     """
     S = seeds.shape[0]
     E = neighbors.shape[0]
@@ -81,4 +88,23 @@ def unique_and_remap(
     unique = unique[:out_cap]
     num_unique = num_seeds + torch.clamp(num_new, max=out_cap - S)
     unique = torch.where(unique == INT_MAX, -1, unique).int()
-    return unique, num_unique.int(), nbr_local, overflowed
+    if not with_counts:
+        return unique, num_unique.int(), nbr_local, overflowed
+
+    # group size at each leader: distance to the next group start, found
+    # by a reverse cummin (torch has none: flip, cummin, flip)
+    starts = torch.where(first, pos, n)
+    nxt = torch.flip(torch.cummin(torch.flip(starts, (0,)), 0).values, (0,))
+    nxt_after = torch.cat([nxt[1:], nxt.new_full((1,), n)])
+    cnt = torch.where(is_pad, 0, nxt_after - pos - (st == 0).long())
+    cnt = torch.where((st == 0) & ~first, 0, cnt)     # duplicate seed slots
+    # every seed slot writes its own position; new leaders kept under the
+    # cap write their local; the rest land in a trash slot that is cut off
+    tgt = torch.where(
+        st == 0, sp,
+        torch.where(first & ~is_pad & (leader_local < out_cap),
+                    leader_local, out_cap))
+    counts = torch.zeros(out_cap + 1, dtype=torch.int64, device=device)
+    counts[tgt] = cnt
+    return (unique, num_unique.int(), nbr_local, overflowed,
+            counts[:out_cap].int())

@@ -162,6 +162,7 @@ def _tiered_last_hop(
     num_cur: torch.Tensor,
     tier_layout: Sequence[Tuple[int, int]],
     rand: Rand,
+    with_out_degrees: bool = False,
 ):
     """Degree-tiered no-dedup last hop (uniform without replacement).
 
@@ -173,7 +174,8 @@ def _tiered_last_hop(
     (class, position) order. ``rand`` feeds tier 0's ``[cap_0, w_0]`` draw.
 
     Returns ``(block, unique, num_unique, ovf)``; ``ovf`` flags a
-    tier-prefix cap exceeded.
+    tier-prefix cap exceeded. ``with_out_degrees`` sets the block's
+    ``src_out_deg``: 1 for each valid slot (its own src), 0 elsewhere.
     """
     V = cur.shape[0]
     caps = [c for c, _ in tier_layout]
@@ -229,10 +231,18 @@ def _tiered_last_hop(
         num_src=num_unique,
         num_dst=num_cur,
         src_slice_offset=V,
+        src_out_deg=_slot_out_degrees(V, valid) if with_out_degrees else None,
         tier_split=tuple(tuple(t) for t in tier_layout),
         dst_invperm=inv.to(torch.int32),
     )
     return blk, unique, num_unique, ovf
+
+
+def _slot_out_degrees(frontier: int, valid: torch.Tensor) -> torch.Tensor:
+    """Src out-degrees of a no-dedup hop: each appended slot is its own
+    src, used by exactly its own edge; frontier entries are never a src."""
+    return torch.cat([valid.new_zeros(frontier, dtype=torch.int32),
+                      valid.to(torch.int32)])
 
 
 def _tiered(plan: SamplePlan, sample_type: SampleType,
@@ -258,6 +268,7 @@ def multi_layer_sample(
     plan: SamplePlan,
     sample_type: SampleType,
     dedup_last_hop: bool = True,
+    with_out_degrees: bool = False,
     *,
     rand: Union[torch.Generator, Sequence[torch.Tensor]],
 ) -> SampledBatch:
@@ -269,6 +280,10 @@ def multi_layer_sample(
     ``input_nodes`` becomes ``[frontier | sampled neighbours]`` and each
     edge's src is its own slot, so the model's source gather is a slice;
     with a tier layout in the plan that hop is tiered.
+
+    ``with_out_degrees=True`` sets every block's ``src_out_deg`` (GCN's
+    norm='both' reads it): from the dedup sort's counts on a dedup hop, and
+    one per valid slot on a no-dedup last hop.
 
     ``rand``: a generator, or one uniforms tensor per hop with the shapes
     of :func:`uniform_shapes`.
@@ -290,7 +305,8 @@ def multi_layer_sample(
 
         if last and _tiered(plan, sample_type, dedup_last_hop):
             blk, cur, num_cur, t_ovf = _tiered_last_hop(
-                graph, cur, num_cur, plan.tier_layout, hop_rand
+                graph, cur, num_cur, plan.tier_layout, hop_rand,
+                with_out_degrees,
             )
             overflowed = overflowed | t_ovf
             blocks_rev.append(blk)
@@ -298,6 +314,7 @@ def multi_layer_sample(
 
         nbrs, valid = sample_layer(graph, cur, fanout, sample_type, hop_rand)
         S = cur.shape[0]
+        counts = None
         if last and not dedup_last_hop:
             # src slot j holds neighbour j itself, appended after the
             # frontier: gather_src(h)[j] == h[S + j]
@@ -305,10 +322,14 @@ def multi_layer_sample(
             src_local = torch.where(valid, S + slot, -1)
             unique = torch.cat([cur, torch.where(valid, nbrs, -1)])
             num_unique = num_cur + valid.sum().to(torch.int32)
+            if with_out_degrees:
+                counts = _slot_out_degrees(S, valid)
         else:
-            unique, num_unique, src_local, ovf = unique_and_remap(
-                cur, num_cur, nbrs, plan.num_unique_cap[hop]
+            unique, num_unique, src_local, ovf, *rest = unique_and_remap(
+                cur, num_cur, nbrs, plan.num_unique_cap[hop],
+                with_counts=with_out_degrees,
             )
+            counts = rest[0] if rest else None
             overflowed = overflowed | ovf
 
         dst_local = torch.arange(
@@ -321,6 +342,7 @@ def multi_layer_sample(
             mask=mask,
             num_src=num_unique,
             num_dst=num_cur,
+            src_out_deg=counts,
             slots_per_dst=fanout,
             src_slice_offset=S if (last and not dedup_last_hop) else None,
         ))

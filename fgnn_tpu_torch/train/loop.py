@@ -1,4 +1,4 @@
-"""Loss, optimizer and train step (port of ``fgnn_tpu/train/loop.py``)."""
+"""Loss, optimizer, train and eval steps (port of ``fgnn_tpu/train/loop.py``)."""
 from __future__ import annotations
 
 from typing import Iterable, Optional, Sequence, Tuple
@@ -52,3 +52,20 @@ def train_step(
     loss.backward()
     optimizer.step()
     return loss.detach(), acc
+
+
+def eval_step(
+    model: torch.nn.Module,
+    batch: SampledBatch,
+    feats: torch.Tensor,
+    labels: torch.Tensor,
+    dst_caps: Sequence[int],
+    batch_size: int,
+) -> torch.Tensor:
+    """Deterministic forward (no dropout, no autograd); the accuracy over
+    the seed rows as a device scalar."""
+    model.eval()
+    with torch.no_grad():
+        logits = model(batch, feats, dst_caps)
+        _, acc = masked_cross_entropy(logits[:batch_size], labels[:batch_size])
+    return acc

@@ -1,6 +1,11 @@
 """The whole slice: the port's OneChipEngine against the JAX package's on
 a small graph, step by step, from the same parameters and with the JAX
-engine's own uniforms injected into the port's sampler."""
+engine's own uniforms injected into the port's sampler. GraphSAGE runs the
+tiered no-dedup last hop, GCN three dedup hops with src out-degrees.
+
+Tolerances: plans, per-step edges and overflow flags exact; loss within
+1e-4 over three Adam steps (float32 sums in another order); evaluation
+accuracy within one test row."""
 import dataclasses
 
 import jax
@@ -22,6 +27,7 @@ torch.set_num_threads(2)
 CFG = RunConfig(model="graphsage", fanout=(10, 3), batch_size=128,
                 num_hidden=32, sample_type=SampleType.KHOP2, dropout=0.0,
                 lr=0.003, compute_dtype="float32")
+GCN_CFG = CFG.replace(model="gcn", fanout=(2, 3, 4), num_hidden=16)
 
 
 @pytest.fixture(scope="module")
@@ -30,15 +36,17 @@ def ds():
                                   num_class=8, train_frac=0.5, seed=42)
 
 
-def test_engine_steps_match_reference(ds):
+def steps_match_reference(ds, cfg):
     """Per step: sampled_edges and the overflow flag equal, loss to 1e-4
     (float32 sums in another order, compounded over three Adam steps)."""
-    jeng = JEngine(CFG, ds)
-    teng = OneChipEngine(CFG, ds, "cpu")
+    jeng = JEngine(cfg, ds)
+    teng = OneChipEngine(cfg, ds, "cpu")
     assert dataclasses.asdict(teng.plan) == dataclasses.asdict(jeng.plan)
-    assert teng.plan.tier_layout is not None, "the tiered hop must engage"
+    gcn = cfg.model == "gcn"
+    assert (teng.plan.tier_layout is None) == gcn
+    assert teng.dedup_last_hop == teng.with_out_degrees == gcn
     teng.model.load_state_dict(params_from_flax(jeng.state.params))
-    shapes = uniform_shapes(teng.plan, CFG.sample_type, teng.dedup_last_hop)
+    shapes = uniform_shapes(teng.plan, cfg.sample_type, teng.dedup_last_hop)
     seeds_all, nums_all = jeng.shuffler.epoch_arrays(0)
     state = jeng.state
     for i in range(3):
@@ -50,6 +58,54 @@ def test_engine_steps_match_reference(ds):
         assert int(tn) == int(jn), i
         assert bool(to) == bool(jo) is False
         assert abs(float(tl) - float(jl)) < 1e-4, (i, float(tl), float(jl))
+
+
+def test_engine_steps_match_reference(ds):
+    steps_match_reference(ds, CFG)
+
+
+def test_gcn_engine_steps_match_reference(ds):
+    """GCN: no tier layout, last-hop dedup and src out-degrees, 3 layers."""
+    steps_match_reference(ds, GCN_CFG)
+
+
+@pytest.mark.parametrize("cfg", [CFG, GCN_CFG], ids=["graphsage", "gcn"])
+def test_evaluate_matches_reference(ds, cfg):
+    """The reference's evaluation: the test set, last-hop dedup for every
+    model, its own key per step; injected here as uniforms."""
+    jeng = JEngine(cfg, ds)
+    teng = OneChipEngine(cfg, ds, "cpu")
+    teng.model.load_state_dict(params_from_flax(jeng.state.params))
+    base = jax.random.key(cfg.seed + 12345)
+    shapes = uniform_shapes(teng.plan, cfg.sample_type, True)
+    gen_state = teng.sample_gen.get_state()
+    acc = teng.evaluate(
+        rand=lambda step: jax_uniforms(jax.random.fold_in(base, step), shapes))
+    assert abs(acc - jeng.evaluate()) <= 1.0 / len(ds.test_set)
+    assert 0.0 < acc < 1.0
+    assert torch.equal(teng.sample_gen.get_state(), gen_state)
+    # its own generator: evaluation repeats exactly and moves no training
+    # generator
+    assert teng.evaluate() == teng.evaluate()
+    assert torch.equal(teng.sample_gen.get_state(), gen_state)
+
+
+def test_run_epochs_equals_run_epoch_calls(ds):
+    """Two epochs in one run_epochs call against two run_epoch calls from
+    the same state (dropout on): identical losses, accuracies, edges and
+    parameters; only epoch_time differs."""
+    cfg = GCN_CFG.replace(dropout=0.5)
+    a = OneChipEngine(cfg, ds, "cpu")
+    b = OneChipEngine(cfg, ds, "cpu")
+    ra = a.run_epochs(0, 2)
+    rb = [b.run_epoch(0), b.run_epoch(1)]
+    for x, y in zip(ra, rb):
+        assert {k: v for k, v in x.items() if k != "epoch_time"} == \
+            {k: v for k, v in y.items() if k != "epoch_time"}
+    assert ra[0]["epoch_time"] == ra[1]["epoch_time"] > 0
+    assert [r["epoch"] for r in ra] == [0, 1]
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
 
 
 def test_run_epoch_reports_the_reference_keys(ds):
@@ -69,7 +125,7 @@ def test_feature_table_over_budget_raises(ds):
 
 @pytest.mark.parametrize("kw", [{"sample_type": SampleType.KHOP1},
                                 {"cache_percentage": 0.1},
-                                {"model": "gcn"}])
+                                {"model": "gat"}])
 def test_unported_configurations_raise(ds, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OneChipEngine(CFG.replace(**kw), ds, "cpu")

@@ -276,6 +276,6 @@ def test_two_layer_graphsage_matches_composed_golden():
 
 
 def test_other_models_are_not_ported_yet():
-    for name in ("gcn", "gat", "pinsage"):
+    for name in ("gat", "pinsage"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(name, 4, 8, 2, 2)

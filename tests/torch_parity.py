@@ -30,7 +30,8 @@ def block_to_torch(b):
     return tsampling.Block(
         src_local=to_torch(b.src_local), dst_local=to_torch(b.dst_local),
         mask=to_torch(b.mask), num_src=to_torch(b.num_src),
-        num_dst=to_torch(b.num_dst), slots_per_dst=b.slots_per_dst,
+        num_dst=to_torch(b.num_dst), src_out_deg=opt(b.src_out_deg),
+        slots_per_dst=b.slots_per_dst,
         src_slice_offset=b.src_slice_offset, tier_split=b.tier_split,
         dst_invperm=opt(b.dst_invperm),
     )
@@ -60,10 +61,12 @@ def assert_blocks_equal(jb, tb):
     assert jb.slots_per_dst == tb.slots_per_dst
     assert jb.src_slice_offset == tb.src_slice_offset
     assert jb.tier_split == tb.tier_split
-    assert (jb.dst_invperm is None) == (tb.dst_invperm is None)
-    if jb.dst_invperm is not None:
-        np.testing.assert_array_equal(np.asarray(jb.dst_invperm),
-                                      to_numpy(tb.dst_invperm))
+    for f in ("dst_invperm", "src_out_deg"):
+        jv, tv = getattr(jb, f), getattr(tb, f)
+        assert (jv is None) == (tv is None), f
+        if jv is not None:
+            np.testing.assert_array_equal(np.asarray(jv), to_numpy(tv),
+                                          err_msg=f)
 
 
 def assert_batches_equal(jbatch, tbatch):
