@@ -17,9 +17,13 @@ Phases, none of which catches a failure (any failure exits non-zero):
   5. the main path: GraphSAGE arch1 on the 1M-node synthetic graph at the
      benchmark's configuration (bench.py), two epochs through
      OneChipEngine, with the row gather's launch count taken over that run;
-  6. streaming pass against its plain version: bit-equal on ragged, narrow,
-     misaligned and one-row inputs and at the full [524288, 128] at each
-     chunk, timed at the full shape;
+  6. streaming pass against its plain version: prints the persistent
+     launch (grid, tile, ring depth, CTAs per SM); bit-equal on ragged,
+     narrow, misaligned and one-row inputs, on sizes cut around the stage
+     tile (one tile, a tile + 16 B, a tile + 4 B, under a tile, a ring
+     wrapped three times with a partial last tile), on x and out both off
+     the 16-byte grid, on an array above 2^31 bytes, and at the full
+     [524288, 128] at each chunk, timed there at each chunk;
   7. the gather campaign's stream and kernel phases, in process, with the
      streaming kernel's launch count taken over that run;
   8. small input, GCN with the 3-layer fanout: card against CPU as in 4;
@@ -240,21 +244,41 @@ def stream_check_phase(dev, card):
     """The streaming kernel against plain ``x + 1``, bit for bit; timed at
     the full shape at each chunk. Returns (max |diff|, {chunk: (ms, ms)})."""
     import torch
+    from fgnn_tpu_torch.ops import stream
     from fgnn_tpu_torch.ops.stream import stream_add_one, stream_add_one_reference
     from fgnn_tpu_torch.tools.gather_campaign import (STREAM_CHUNKS,
                                                       STREAM_SHAPE, median_ms)
 
+    n, d = STREAM_SHAPE
+    cfg = stream.launch_config(n * d, dev)
+    print(f"  launch at {list(STREAM_SHAPE)} f32: grid {cfg['grid']} CTAs "
+          f"({cfg['ctas_per_sm']} an SM x {cfg['sms']} SMs), {cfg['tiles']} "
+          f"tiles of {cfg['tile_bytes']} B, ring of {cfg['stages']} stages")
+    tile = cfg["tile_bytes"] // 4  # float32 elements in one stage tile
+    # every CTA wraps its ring three times, then one 3-row partial tile
+    wrap_rows = 3 * cfg["grid"] * cfg["stages"] * tile // 128 + 3
+
     gen = torch.Generator(dev).manual_seed(3)
-    base = torch.randn(3001 * 128 + 1, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    base = randn(3001 * 128 + 1)
     cases = [
-        ("ragged N=3001 D=128", torch.randn((3001, 128), generator=gen,
-                                            device=dev), 512),
-        ("D=3", torch.randn((5000, 3), generator=gen, device=dev), 512),
-        ("D=3 chunk 7", torch.randn((5000, 3), generator=gen, device=dev), 7),
+        ("ragged N=3001 D=128", randn(3001, 128), 512),
+        ("D=3", randn(5000, 3), 512),
+        ("D=3 chunk 7", randn(5000, 3), 7),
         ("misaligned base", base[1:].view(3001, 128), 512),
-        ("N=1", torch.randn((1, 128), generator=gen, device=dev), 512),
+        ("N=1", randn(1, 128), 512),
+        ("one tile", randn(tile // 128, 128), 512),
+        ("one tile + 16 B", randn(tile // 4 + 1, 4), 512),
+        ("one tile + 4 B", randn(tile + 1, 1), 512),
+        ("under one tile", randn(5, 128), 512),
+        (f"ring wrapped 3x, partial last tile [{wrap_rows}, 128]",
+         randn(wrap_rows, 128), 2048),
+        ("above 2^31 bytes [4194305, 128]", randn(4_194_305, 128), 8192),
     ]
-    full = torch.randn(STREAM_SHAPE, generator=gen, device=dev)
+    full = randn(*STREAM_SHAPE)
     cases += [(f"full {STREAM_SHAPE} chunk {c}", full, c) for c in STREAM_CHUNKS]
     max_err = 0.0
     for label, x, chunk in cases:
@@ -263,9 +287,18 @@ def stream_check_phase(dev, card):
         torch.cuda.synchronize()
         check(torch.equal(out, ref), f"stream_add_one != x + 1 for {label}")
         max_err = max(max_err, float((out - ref).abs().max()))
-    print(f"  {len(cases)} stream_add_one-vs-plain cases bit-equal, "
+        del out, ref
+    # x and out both 4 bytes off the 16-byte grid: the bulk path's scalar
+    # head (the wrapper's own outputs are always aligned)
+    x = base[1:].view(3001, 128)
+    out = torch.empty_like(base)[1:].view(3001, 128)
+    stream._launch(x, out, 512)
+    torch.cuda.synchronize()
+    check(torch.equal(out, x + 1.0), "stream_add_one != x + 1 for x and out "
+          "both off the 16-byte grid")
+    print(f"  {len(cases) + 1} stream_add_one-vs-plain cases bit-equal, "
           f"max |diff| {max_err}")
-    n, d = STREAM_SHAPE
+    del cases, x
     moved = 2 * n * d * 4
     timing = {}
     for chunk in STREAM_CHUNKS:

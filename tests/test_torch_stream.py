@@ -51,6 +51,18 @@ def test_port_matches_k3_interpreted():
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 512, 2048, 8192])
+@pytest.mark.parametrize("shape", [(3001, 128), (5000, 3), (1, 128)])
+def test_every_chunk_gives_x_plus_one(shape, chunk):
+    """The chunk sets nothing in the kernel's launch; the wrapper's contract
+    is x + 1 for every chunk K3 was swept over and any N, D."""
+    x = torch.from_numpy(
+        np.random.default_rng(1).standard_normal(shape).astype(np.float32))
+    out = stream_add_one(x, chunk)
+    assert out.shape == shape and out.dtype == torch.float32
+    assert torch.equal(out, x + 1.0)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64, torch.int32])
 def test_rejects_other_dtypes(dtype):
     with pytest.raises(TypeError, match="float32"):
@@ -79,3 +91,36 @@ def test_gather_campaign_imports_and_refuses_to_run_without_cuda():
         capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
     assert r.returncode != 0
     assert "ms" not in r.stdout and "no CPU mode" in r.stderr
+
+
+def test_median_ms_times_back_to_back_calls_behind_a_spin(monkeypatch):
+    """Each sample queues ``inner`` calls behind a spin on the card between
+    its two events, so the host's launch path is not timed; samples are
+    taken in turns and reported per call."""
+    from fgnn_tpu_torch.tools import gather_campaign
+
+    log = []
+
+    class Event:
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            log.append("record")
+
+        def synchronize(self):
+            log.append("sync")
+
+        def elapsed_time(self, end):
+            return 30.0
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: log.append("spin"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ms = gather_campaign.median_ms([lambda: log.append("f"),
+                                    lambda: log.append("g")],
+                                   reps=2, warm=1, inner=3)
+    assert ms == [10.0, 10.0]
+    sample = ["spin", "record"] + 3 * ["{}"] + ["record", "sync"]
+    expect = ["f", "g"] + 2 * [s.format(fn) for fn in "fg" for s in sample]
+    assert log == expect
