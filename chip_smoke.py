@@ -30,9 +30,25 @@ Phases, none of which catches a failure (any failure exits non-zero):
   9. GCN at the source paper's Table-1 configuration ([5, 10, 15], batch
      8000, hidden 256) on the same graph: two epochs through run_epochs,
      the row gather's launch count over them, the first step's sampled
-     edges against the NumPy sampler, then evaluate() on the test set.
-The 1M-node graph is built once and shared by 5 and 9. Prints a JSON line
-of kernel results, then as its last line ``{"ok": true, "device": {...}}``.
+     edges against the NumPy sampler, then evaluate() on the test set;
+ 10. small input, PinSAGE (3 random-walk hops, dropout 0): card against
+     CPU as in 4, with injected walk uniforms;
+ 11. PinSAGE at the reference app's configuration (3 hops of K=5, W=4
+     walks of length 3, restart 0.5, batch 8000, hidden 256) on the same
+     graph: two epochs through run_epochs, the row gather's launch count,
+     the first step's sampled edges against an independent NumPy random
+     walk, then evaluate();
+ 12. small input, GAT: eval-mode logits and the gradients of the masked
+     loss on the card against the CPU, from the same parameters and
+     uniforms (attention dropout, fixed at 0.6 in training, cannot draw
+     the same masks on two devices);
+ 13. GAT 8 heads x 256 at [25, 10] (batch 8000, bf16, the tiered no-dedup
+     last hop) on the same graph: two epochs through run_epochs, the row
+     gather's launch count, then evaluate(). Its loss is held to fall from
+     epoch 0, not to end below ln 172 (see gat_phase).
+The 1M-node graph is built once and shared by 5, 9, 11 and 13. Prints a
+JSON line of kernel results, then as its last line
+``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -54,6 +70,16 @@ JAX_EPOCH1_LOSS = 3.658
 JAX_EDGES_PER_EPOCH = (22_494_030, 22_511_196)
 EXPECTED_EDGES = 22.5e6
 NUM_CLASS = 172
+# gather_rows launches in one GAT training step at [25, 10] with the tiered
+# no-dedup last hop (forward only; the backward is a torch scatter-add):
+GAT_LAUNCHES_PER_STEP = (
+    1    # the feature gather
+    + 1  # layer 1: er[dst] over the tiered block (el[src], feat[src] slice)
+    + 1  # layer 1: the tiered aggregation's dst_invperm unpermute
+    + 1  # layer 2: el[src] over the regular hop-0 block
+    + 1  # layer 2: er[dst]
+    + 1  # layer 2: feat[src]
+)
 
 
 def check(ok, msg):
@@ -141,27 +167,36 @@ def kernel_phase(dev, card):
     return max_err, timing
 
 
-def small_input_phase(dev, model="graphsage", fanout=(10, 3)):
-    """The port's step on the card agrees with the same step on the CPU."""
-    import torch
+def small_engines(dev, model, **kw):
+    """The port's engine on the CPU and on the card, with the same
+    parameters, over a 2000-node graph."""
     from fgnn_tpu.config import RunConfig, SampleType
     from fgnn_tpu.data import make_synthetic_dataset
     from fgnn_tpu_torch.engine import OneChipEngine
-    from fgnn_tpu_torch.ops.sampling import uniform_shapes
 
     ds = make_synthetic_dataset(num_node=2000, avg_degree=8, feat_dim=32,
                                 num_class=8, train_frac=0.5, seed=42)
-    cfg = RunConfig(model=model, fanout=fanout, batch_size=128,
-                    num_hidden=32, sample_type=SampleType.KHOP2, dropout=0.0,
-                    lr=0.003, compute_dtype="float32")
+    cfg = RunConfig(model=model, batch_size=128, num_hidden=32,
+                    sample_type=SampleType.KHOP2, dropout=0.0, lr=0.003,
+                    compute_dtype="float32").replace(**kw)
     cpu = OneChipEngine(cfg, ds, "cpu")
     gpu = OneChipEngine(cfg, ds, dev)
     gpu.model.load_state_dict(cpu.model.state_dict())
-    # GraphSAGE runs the tiered no-dedup last hop, GCN dedups every hop
-    check((cpu.plan.tier_layout is not None) == (model == "graphsage"),
+    # GraphSAGE and GAT run the tiered no-dedup last hop, GCN dedups every
+    # hop, PinSAGE's walks are untiered
+    tiered = model in ("graphsage", "gat")
+    check((cpu.plan.tier_layout is not None) == tiered,
           f"{model}: tier layout {cpu.plan.tier_layout}")
+    return cpu, gpu
+
+
+def small_input_phase(dev, model="graphsage", fanout=(10, 3), **kw):
+    """The port's step on the card agrees with the same step on the CPU."""
+    import torch
+
+    cpu, gpu = small_engines(dev, model, fanout=fanout, **kw)
     gen = torch.Generator().manual_seed(1)
-    shapes = uniform_shapes(cpu.plan, cfg.sample_type, cpu.dedup_last_hop)
+    shapes = cpu.uniform_shapes(cpu.dedup_last_hop)
     for seeds, n, step in cpu.shuffler.batches(0):
         rand = [torch.rand(s, generator=gen) for s in shapes]
         lc, _, ec, oc = cpu.step(torch.as_tensor(seeds), n, rand)
@@ -343,38 +378,92 @@ def numpy_first_step_edges(ds, eng, seeds, num_seeds):
     return edges
 
 
-def gcn_phase(dev, card, ds):
-    """GCN of the source paper's Table 1 (exp/table1/run.py: fanout 5 10
-    15) at full width: two epochs through run_epochs, then evaluate()."""
-    import torch
-    from fgnn_tpu.config import RunConfig, SampleType
-    from fgnn_tpu_torch.engine import OneChipEngine
-    from fgnn_tpu_torch.ops import cuda_lib
+def numpy_rw_first_step_edges(ds, cfg, seeds, num_seeds):
+    """Sampled edges of one PinSAGE batch by an independent NumPy random
+    walk: per hop, W walks of length L from every frontier node (a walk
+    stops at a dead end or, after a step, with the restart probability),
+    the K most visited distinct nodes as that node's neighbours (counted
+    with one sort of (row, id) keys; ties go to the earlier visit), and the
+    union of the frontier and those as the next frontier."""
+    import numpy as np
 
-    cfg = RunConfig(model="gcn", fanout=(5, 10, 15), batch_size=8000,
-                    num_hidden=256, sample_type=SampleType.KHOP2, dropout=0.5,
-                    lr=0.003, compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    indptr, indices = np.asarray(ds.indptr), np.asarray(ds.indices)
+    W, L, K = cfg.num_random_walk, cfg.random_walk_length, cfg.num_neighbor
+    cur = np.unique(seeds[:num_seeds]).astype(np.int64)
+    edges = 0
+    for _ in range(cfg.num_layer_rw):
+        n = cur.shape[0]
+        node = np.repeat(cur, W)                   # row i * W + w: walk w of i
+        visits = np.full((n * W, L), -1, np.int64)
+        for step in range(L):
+            safe = np.maximum(node, 0)
+            deg = indptr[safe + 1] - indptr[safe]
+            ok = (node >= 0) & (deg > 0)
+            pick = np.minimum((rng.random(n * W) * deg).astype(np.int64),
+                              np.maximum(deg - 1, 0))
+            nxt = indices[np.minimum(indptr[safe] + pick, len(indices) - 1)]
+            visits[:, step] = np.where(ok, nxt, -1)
+            live = rng.random(n * W) >= cfg.random_walk_restart_prob
+            node = np.where(ok & live, visits[:, step], -1)
+        row = np.repeat(np.arange(n), W * L)
+        ids = visits.reshape(-1)
+        row, ids = row[ids >= 0], ids[ids >= 0]
+        key, first, cnt = np.unique(row * (ds.num_node + 1) + ids,
+                                    return_index=True, return_counts=True)
+        row, ids = key // (ds.num_node + 1), key % (ds.num_node + 1)
+        # by row, most visited first, ties in visit order: a tie broken by
+        # id would favour low ids in every row and shrink the union
+        order = np.lexsort((first, -cnt, row))
+        row, ids = row[order], ids[order]
+        rank = np.arange(row.shape[0]) - np.searchsorted(row, row)
+        edges += int((rank < K).sum())
+        cur = np.union1d(cur, ids[rank < K])
+    return edges
+
+
+def big_engine(dev, ds, **kw):
+    """The port's engine at batch 8000, hidden 256, bf16, dropout 0.5, lr
+    0.003 on the 1M-node graph, with ``kw`` on top."""
+    from fgnn_tpu.config import RunConfig
+    from fgnn_tpu_torch.engine import OneChipEngine
+
+    cfg = RunConfig(batch_size=8000, num_hidden=256, dropout=0.5, lr=0.003,
+                    compute_dtype="bfloat16").replace(**kw)
     t0 = time.perf_counter()
     eng = OneChipEngine(cfg, ds, dev)
     print(f"  engine init {time.perf_counter() - t0:.1f} s; plan {eng.plan}")
-    check(eng.dedup_last_hop and eng.plan.tier_layout is None,
-          "GCN must dedup its last hop, untiered")
+    return eng
 
-    # the first step's batch, sampled apart from training, against NumPy
+
+def first_step_phase(dev, eng, np_edges, source):
+    """The first step's batch, sampled apart from training, holds within 1%
+    of ``np_edges`` sampled edges (by ``source``) and does not overflow."""
+    import torch
+
     seeds_all, nums_all = eng.shuffler.epoch_arrays(0)
     batch = eng.sample(torch.as_tensor(seeds_all[0], device=dev),
                        int(nums_all[0]), torch.Generator(dev).manual_seed(1),
                        eng.dedup_last_hop)
     port_edges = int(sum(int(b.mask.sum()) for b in batch.blocks))
-    np_edges = numpy_first_step_edges(ds, eng, seeds_all[0], int(nums_all[0]))
-    rel = abs(port_edges - np_edges) / np_edges
-    print(f"  first step sampled edges: card {port_edges}, NumPy sampler "
-          f"{np_edges} ({rel:.3%}); per hop "
+    want = np_edges(seeds_all[0], int(nums_all[0]))
+    rel = abs(port_edges - want) / want
+    print(f"  first step sampled edges: card {port_edges}, {source} {want} "
+          f"({rel:.3%}); per hop "
           f"{[int(b.mask.sum()) for b in reversed(batch.blocks)]}; "
           f"overflow {bool(batch.overflowed)}")
-    check(rel < 0.01, f"first-step edges {port_edges} vs NumPy {np_edges}")
+    check(rel < 0.01, f"first-step edges {port_edges} vs {source} {want}")
     check(not bool(batch.overflowed), "the first step's batch overflowed")
-    del batch
+
+
+def train_phase(dev, card, ds, eng, launches_per_step, below_uniform=True):
+    """Two epochs through run_epochs, then evaluate() on the test set.
+    Gates: finite losses, epoch 1 below epoch 0 (and below ln 172, the
+    loss of a uniform guess, if ``below_uniform``), no cap overflow,
+    ``launches_per_step`` row-gather launches a step, accuracy in
+    (1/172, 1]. Returns (results, launches)."""
+    import torch
+    from fgnn_tpu_torch.ops import cuda_lib
 
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_lib.reset_launches()
@@ -398,11 +487,115 @@ def gcn_phase(dev, card, ds):
     l0, l1 = results[0]["loss"], results[1]["loss"]
     check(math.isfinite(l0) and math.isfinite(l1), f"losses {l0}, {l1}")
     check(l1 < l0, f"epoch-1 loss {l1} is not below epoch 0's {l0}")
-    check(l1 < math.log(NUM_CLASS), f"epoch-1 loss {l1} is not below ln 172")
-    check(not eng.last_overflowed, "a GCN epoch overflowed its caps")
-    # per step: the feature gather and the three layers' gather_src
-    check(launches == 4 * steps, f"{launches} launches for {steps} steps")
+    check(l1 < math.log(NUM_CLASS) or not below_uniform,
+          f"epoch-1 loss {l1} is not below ln 172")
+    check(not eng.last_overflowed, "an epoch overflowed its caps")
+    check(launches == launches_per_step * steps,
+          f"{launches} launches for {steps} steps")
     check(1.0 / NUM_CLASS < acc <= 1.0, f"evaluate() accuracy {acc}")
+    return results, launches
+
+
+def gcn_phase(dev, card, ds):
+    """GCN of the source paper's Table 1 (exp/table1/run.py: fanout 5 10
+    15) at full width: two epochs through run_epochs, then evaluate()."""
+    from fgnn_tpu.config import SampleType
+
+    eng = big_engine(dev, ds, model="gcn", fanout=(5, 10, 15),
+                     sample_type=SampleType.KHOP2)
+    check(eng.dedup_last_hop and eng.plan.tier_layout is None,
+          "GCN must dedup its last hop, untiered")
+    first_step_phase(dev, eng, lambda seeds, n: numpy_first_step_edges(
+        ds, eng, seeds, n), "NumPy sampler")
+    # per step: the feature gather and the three layers' gather_src
+    return train_phase(dev, card, ds, eng, 4)[1]
+
+
+def pinsage_phase(dev, card, ds):
+    """PinSAGE at the reference app's configuration (RunConfig and
+    examples/common_config.py defaults: 3 hops of num_neighbor 5, 4 walks
+    of length 3, restart 0.5): two epochs through run_epochs, then
+    evaluate()."""
+    from fgnn_tpu.config import SampleType
+
+    eng = big_engine(dev, ds, model="pinsage",
+                     sample_type=SampleType.RANDOM_WALK, num_layer_rw=3,
+                     num_neighbor=5, num_random_walk=4, random_walk_length=3,
+                     random_walk_restart_prob=0.5)
+    check(not eng.dedup_last_hop and eng.plan.tier_layout is None,
+          "PinSAGE must skip its last hop's dedup, untiered")
+    first_step_phase(dev, eng, lambda seeds, n: numpy_rw_first_step_edges(
+        ds, eng.cfg, seeds, n), "NumPy random walk")
+    # per step: the feature gather and gather_src on the two dedup hops
+    # (the no-dedup last hop's gather_src is a slice)
+    return train_phase(dev, card, ds, eng, 3)[1]
+
+
+def gat_small_phase(dev):
+    """GAT on the card against the CPU in eval mode: the logits within
+    1e-4, the masked loss's gradients within 1e-4 of their largest entry,
+    from the same parameters and uniforms (the training layout)."""
+    import torch
+    from fgnn_tpu_torch.ops.extract import label_gather
+    from fgnn_tpu_torch.train.loop import masked_cross_entropy
+
+    cpu, gpu = small_engines(dev, "gat", fanout=(10, 3), dropout=0.5)
+    gen = torch.Generator().manual_seed(2)
+    shapes = cpu.uniform_shapes(cpu.dedup_last_hop)
+    B = cpu.cfg.batch_size
+
+    def forward_backward(eng, seeds, n, rand):
+        batch = eng.sample(seeds, n, rand, eng.dedup_last_hop)
+        feats = eng.feat_gather(eng.feat_dev, batch.input_nodes)
+        labels = label_gather(eng.label_dev, batch.output_nodes)
+        eng.model.eval()
+        eng.model.zero_grad(set_to_none=True)
+        logits = eng.model(batch, feats, eng.dst_caps)
+        loss, _ = masked_cross_entropy(logits[:B], labels[:B])
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in eng.model.named_parameters()}
+        edges = int(sum(int(b.mask.sum()) for b in batch.blocks))
+        return logits.detach().cpu(), loss.item(), grads, edges
+
+    for seeds, n, step in cpu.shuffler.batches(0):
+        rand = [torch.rand(s, generator=gen) for s in shapes]
+        lc, loss_c, gc, ec = forward_backward(cpu, torch.as_tensor(seeds), n,
+                                              rand)
+        lg, loss_g, gg, eg = forward_backward(
+            gpu, torch.as_tensor(seeds, device=dev), n,
+            [r.to(dev) for r in rand])
+        check(ec == eg, f"step {step}: edges {ec} != {eg}")
+        err = float((lc - lg).abs().max())
+        check(err < 1e-4, f"step {step}: logits differ by {err}")
+        rel = max(float((gc[k] - gg[k]).abs().max() / gc[k].abs().max())
+                  for k in gc)
+        check(rel < 1e-4, f"step {step}: gradients differ by {rel} relative")
+        print(f"  step {step}: loss cpu {loss_c:.6f} gpu {loss_g:.6f}, edges "
+              f"{eg}, logits max |diff| {err:.2e}, gradients max relative "
+              f"diff {rel:.2e}")
+        if step == 2:
+            break
+
+
+def gat_phase(dev, card, ds):
+    """GAT, 8 heads x 256 hidden, at [25, 10] (GraphSAGE's sampler, the
+    tiered no-dedup last hop): two epochs through run_epochs, then
+    evaluate(); sampled edges within 1% of 22.5M an epoch."""
+    from fgnn_tpu.config import SampleType
+
+    eng = big_engine(dev, ds, model="gat", fanout=(25, 10),
+                     sample_type=SampleType.KHOP2)
+    check(not eng.dedup_last_hop and eng.plan.tier_layout is not None,
+          "GAT must run the tiered no-dedup last hop")
+    # GAT never sees a node's own features, which set the synthetic labels,
+    # and starts above ln 172: the JAX reference's GAT also ends epoch 1
+    # above it (PERF.md, GAT's loss gate), so only the fall from epoch 0
+    # is gated
+    results, launches = train_phase(dev, card, ds, eng, GAT_LAUNCHES_PER_STEP,
+                                    below_uniform=False)
+    for r in results:
+        rel = abs(r["sampled_edges"] - EXPECTED_EDGES) / EXPECTED_EDGES
+        check(rel < 0.01, f"sampled_edges {r['sampled_edges']} off by {rel:.3%}")
     return launches
 
 
@@ -413,11 +606,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on a CUDA device", file=sys.stderr)
         return 1
+    from fgnn_tpu.config import SampleType
     from fgnn_tpu_torch.ops import cuda_lib
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/9] device")
+    print("[1/13] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -429,34 +623,50 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/9] build")
+    print("[2/13] build")
     kernels = ("gather_rows", "stream_add_one")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/9] row gather against plain version")
+    print("[3/13] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/9] small input, GraphSAGE: card against CPU")
+    print("[4/13] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/9] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/13] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
     sage_launches = main_path_phase(dev, card, ds)
 
-    print("[6/9] streaming pass against plain version")
+    print("[6/13] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/9] gather campaign: stream and kernel phases")
+    print("[7/13] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/9] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/13] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/9] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    print("[9/13] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
     gcn_launches = gcn_phase(dev, card, ds)
+
+    print("[10/13] small input, PinSAGE: card against CPU")
+    small_input_phase(dev, model="pinsage",
+                      sample_type=SampleType.RANDOM_WALK)
+
+    print("[11/13] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+          "evaluate")
+    pinsage_launches = pinsage_phase(dev, card, ds)
+
+    print("[12/13] small input, GAT: card against CPU, eval-mode logits and "
+          "gradients")
+    gat_small_phase(dev)
+
+    print("[13/13] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+          "evaluate")
+    gat_launches = gat_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     k_ms, p_ms = timing["feature gather"]
@@ -467,7 +677,8 @@ def main() -> int:
         "route": "cuda",
         "source": "fgnn_tpu_torch/csrc/gather_rows.cu",
         "replaces": "fgnn_tpu/ops/pallas_gather2.py:131",
-        "launches": sage_launches + gcn_launches,
+        "launches": (sage_launches + gcn_launches + pinsage_launches
+                     + gat_launches),
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -5,8 +5,9 @@ device memory. The step is a plain per-step loop: sample -> feature gather
 (the Hopper row-gather kernel) -> labels -> train. Statistics stay on the
 device until the end of the run, which syncs once (:meth:`run_epochs`).
 
-Ported: the HBM-resident path for GraphSAGE and GCN, and evaluation. Not
-yet: host-resident features and the caches, checkpoints, sanity checks and
+Ported: the HBM-resident path for GraphSAGE, GCN, GAT (KHOP0/KHOP2) and
+PinSAGE (RANDOM_WALK), and evaluation. Not yet: the other samplers,
+host-resident features and the caches, checkpoints, sanity checks and
 profiling (ROADMAP.md).
 """
 from __future__ import annotations
@@ -24,8 +25,9 @@ from fgnn_tpu.utils import get_logger
 from .models.gnn import build_model
 from .ops.extract import device_gather, label_gather, mock_gather
 from .ops.padding import make_plan
+from .ops.random_walk import random_walk_topk, walk_uniform_shapes
 from .ops.reference_impl import calibrate_caps
-from .ops.sampling import CSRGraph, multi_layer_sample
+from .ops.sampling import CSRGraph, multi_layer_sample, uniform_shapes
 from .parallel.shuffler import EpochShuffler
 from .train.loop import eval_step, make_optimizer, train_step
 
@@ -48,7 +50,8 @@ class OneChipEngine:
         by default ``FEAT_MEMORY_SHARE`` of a CUDA device's memory (no limit
         on the CPU). A table that does not fit raises."""
         cfg.validate()
-        if cfg.sample_type not in (SampleType.KHOP0, SampleType.KHOP2):
+        if cfg.sample_type not in (SampleType.KHOP0, SampleType.KHOP2,
+                                   SampleType.RANDOM_WALK):
             raise NotImplementedError(
                 f"{cfg.sample_type} is not ported yet (ROADMAP.md A12)")
         if cfg.use_cache:
@@ -79,16 +82,19 @@ class OneChipEngine:
 
         # --- static plan via NumPy calibration -----------------------------
         # the feature table is on the device, so the last hop skips dedup
-        # (duplicate feature-row reads cost less than the dedup sort) and is
-        # degree-tiered, EXCEPT for GCN: its 1/sqrt(out-degree) source
-        # normalisation counts block occurrences, which skipping dedup
-        # changes, and it reads those counts from the dedup sort
+        # (duplicate feature-row reads cost less than the dedup sort), EXCEPT
+        # for GCN: its 1/sqrt(out-degree) source normalisation counts block
+        # occurrences, which skipping dedup changes, and it reads those
+        # counts from the dedup sort. The uniform samplers' no-dedup last
+        # hop is degree-tiered; PinSAGE's walks every hop at K = num_neighbor
         gcn = cfg.model == "gcn"
+        walk = cfg.sample_type == SampleType.RANDOM_WALK
         self.dedup_last_hop = gcn
         self.with_out_degrees = gcn
-        fan_sampling = list(reversed(cfg.fanout))
+        fan_sampling = ([cfg.num_neighbor] * cfg.num_layer_rw if walk
+                        else list(reversed(cfg.fanout)))
         tier_stats = None
-        if gcn:
+        if gcn or walk:
             caps = calibrate_caps(indptr, indices, np.asarray(ds.train_set),
                                   cfg.batch_size, fan_sampling, seed=cfg.seed)
         else:
@@ -96,8 +102,9 @@ class OneChipEngine:
                 indptr, indices, np.asarray(ds.train_set), cfg.batch_size,
                 fan_sampling, seed=cfg.seed, tier_candidates=TIER_CANDIDATES,
             )
-        self.plan = make_plan(cfg.batch_size, cfg.fanout, ds.num_node,
-                              unique_caps=caps, tier_stats=tier_stats)
+        self.plan = make_plan(cfg.batch_size, list(reversed(fan_sampling)),
+                              ds.num_node, unique_caps=caps,
+                              tier_stats=tier_stats)
         log.info("sample plan: %s", self.plan)
 
         # --- feature table in device memory --------------------------------
@@ -129,12 +136,29 @@ class OneChipEngine:
         self.last_overflowed = False
 
     # ------------------------------------------------------------------
+    def uniform_shapes(self, dedup_last_hop: bool) -> list:
+        """Shape of the uniforms each hop of :meth:`sample` draws."""
+        cfg = self.cfg
+        if cfg.sample_type == SampleType.RANDOM_WALK:
+            return walk_uniform_shapes(self.plan, cfg.num_random_walk,
+                                       cfg.random_walk_length)
+        return uniform_shapes(self.plan, cfg.sample_type, dedup_last_hop)
+
     def sample(self, seeds: torch.Tensor, num_seeds,
                rand: Union[torch.Generator, Sequence[torch.Tensor]],
                dedup_last_hop: bool):
-        """One batch of ``multi_layer_sample`` under the engine's plan;
-        ``rand`` is a generator or one uniforms tensor per hop
-        (``ops.sampling.uniform_shapes``)."""
+        """One batch under the engine's plan: ``random_walk_topk`` for
+        RANDOM_WALK, else ``multi_layer_sample``. ``rand`` is a generator
+        or one uniforms tensor per hop (:meth:`uniform_shapes`)."""
+        cfg = self.cfg
+        if cfg.sample_type == SampleType.RANDOM_WALK:
+            return random_walk_topk(
+                self.graph, seeds, num_seeds, self.plan,
+                num_random_walk=cfg.num_random_walk,
+                random_walk_length=cfg.random_walk_length,
+                restart_prob=cfg.random_walk_restart_prob,
+                dedup_last_hop=dedup_last_hop, rand=rand,
+            )
         return multi_layer_sample(
             self.graph, seeds, num_seeds, self.plan, self.cfg.sample_type,
             dedup_last_hop=dedup_last_hop,
@@ -146,7 +170,7 @@ class OneChipEngine:
         """One training step on a ``[seed_cap]`` int32 seed tensor.
 
         ``rand`` injects the sampler's uniforms, one tensor per hop
-        (``ops.sampling.uniform_shapes``); by default the engine's own
+        (:meth:`uniform_shapes`); by default the engine's own
         generator draws them. Returns device scalars ``(loss, acc,
         sampled_edges, overflowed)``.
         """
@@ -230,7 +254,7 @@ class OneChipEngine:
         evaluation does for every model, from a generator of their own
         (seed ``cfg.seed + EVAL_SEED_OFFSET``), so evaluating leaves the
         training generators where they were. ``rand(step)`` injects the
-        uniforms of a step instead (``uniform_shapes`` with dedup)."""
+        uniforms of a step instead (:meth:`uniform_shapes` with dedup)."""
         cfg = self.cfg
         nodes = np.asarray(node_set if node_set is not None
                            else self.ds.test_set)

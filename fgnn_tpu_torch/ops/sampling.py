@@ -79,7 +79,7 @@ class SampledBatch:
     overflowed: torch.Tensor     # scalar bool: a layer clipped its cap
 
 
-def _uniforms(rand: Rand, shape: Tuple[int, int], device) -> torch.Tensor:
+def _uniforms(rand: Rand, shape: Tuple[int, ...], device) -> torch.Tensor:
     if isinstance(rand, torch.Generator):
         return torch.rand(shape, generator=rand, device=device)
     if tuple(rand.shape) != tuple(shape) or rand.dtype != torch.float32:
@@ -238,6 +238,18 @@ def _tiered_last_hop(
     return blk, unique, num_unique, ovf
 
 
+def _append_slots(cur: torch.Tensor, num_cur: torch.Tensor, nbrs: torch.Tensor,
+                  valid: torch.Tensor):
+    """A no-dedup hop's src space: the sampled slots appended after the
+    frontier, so slot j's src is ``S + j`` (``gather_src`` is a slice).
+    Returns ``(unique, num_unique, src_local)``."""
+    S = cur.shape[0]
+    slot = torch.arange(nbrs.shape[0], dtype=torch.int32, device=cur.device)
+    return (torch.cat([cur, torch.where(valid, nbrs, -1)]),
+            num_cur + valid.sum().to(torch.int32),
+            torch.where(valid, S + slot, -1))
+
+
 def _slot_out_degrees(frontier: int, valid: torch.Tensor) -> torch.Tensor:
     """Src out-degrees of a no-dedup hop: each appended slot is its own
     src, used by exactly its own edge; frontier entries are never a src."""
@@ -316,12 +328,8 @@ def multi_layer_sample(
         S = cur.shape[0]
         counts = None
         if last and not dedup_last_hop:
-            # src slot j holds neighbour j itself, appended after the
-            # frontier: gather_src(h)[j] == h[S + j]
-            slot = torch.arange(nbrs.shape[0], dtype=torch.int32, device=device)
-            src_local = torch.where(valid, S + slot, -1)
-            unique = torch.cat([cur, torch.where(valid, nbrs, -1)])
-            num_unique = num_cur + valid.sum().to(torch.int32)
+            unique, num_unique, src_local = _append_slots(cur, num_cur, nbrs,
+                                                          valid)
             if with_out_degrees:
                 counts = _slot_out_degrees(S, valid)
         else:

@@ -1,7 +1,8 @@
 """The whole slice: the port's OneChipEngine against the JAX package's on
 a small graph, step by step, from the same parameters and with the JAX
 engine's own uniforms injected into the port's sampler. GraphSAGE runs the
-tiered no-dedup last hop, GCN three dedup hops with src out-degrees.
+tiered no-dedup last hop, GCN three dedup hops with src out-degrees. The
+helpers also serve the PinSAGE and GAT engine tests.
 
 Tolerances: plans, per-step edges and overflow flags exact; loss within
 1e-4 over three Adam steps (float32 sums in another order); evaluation
@@ -19,8 +20,7 @@ from fgnn_tpu.data import make_synthetic_dataset
 from fgnn_tpu.engine import OneChipEngine as JEngine
 from fgnn_tpu_torch.engine import OneChipEngine
 from fgnn_tpu_torch.models.convert import params_from_flax
-from fgnn_tpu_torch.ops.sampling import uniform_shapes
-from torch_parity import jax_uniforms
+from torch_parity import jax_uniforms, jax_walk_uniforms
 
 torch.set_num_threads(2)
 
@@ -36,17 +36,33 @@ def ds():
                                   num_class=8, train_frac=0.5, seed=42)
 
 
-def steps_match_reference(ds, cfg):
-    """Per step: sampled_edges and the overflow flag equal, loss to 1e-4
-    (float32 sums in another order, compounded over three Adam steps)."""
+def jax_draws(cfg):
+    """The reference's per-hop uniforms for the engine's sampler."""
+    if cfg.sample_type == SampleType.RANDOM_WALK:
+        return jax_walk_uniforms
+    return jax_uniforms
+
+
+def engines(ds, cfg):
+    """The reference engine and the port's, from the same parameters, with
+    the same plan and the reference's last-hop rule: only GCN dedups its
+    last hop; only the uniform samplers' no-dedup last hop is tiered."""
     jeng = JEngine(cfg, ds)
     teng = OneChipEngine(cfg, ds, "cpu")
     assert dataclasses.asdict(teng.plan) == dataclasses.asdict(jeng.plan)
     gcn = cfg.model == "gcn"
-    assert (teng.plan.tier_layout is None) == gcn
+    walk = cfg.sample_type == SampleType.RANDOM_WALK
+    assert (teng.plan.tier_layout is None) == (gcn or walk)
     assert teng.dedup_last_hop == teng.with_out_degrees == gcn
     teng.model.load_state_dict(params_from_flax(jeng.state.params))
-    shapes = uniform_shapes(teng.plan, cfg.sample_type, teng.dedup_last_hop)
+    return jeng, teng
+
+
+def steps_match_reference(ds, cfg):
+    """Per step: sampled_edges and the overflow flag equal, loss to 1e-4
+    (float32 sums in another order, compounded over three Adam steps)."""
+    jeng, teng = engines(ds, cfg)
+    shapes = teng.uniform_shapes(teng.dedup_last_hop)
     seeds_all, nums_all = jeng.shuffler.epoch_arrays(0)
     state = jeng.state
     for i in range(3):
@@ -54,7 +70,8 @@ def steps_match_reference(ds, cfg):
         state, jl, _, jn, jo = jeng.fused_step(
             state, key, jnp.asarray(seeds_all[i]), jnp.int32(nums_all[i]))
         tl, _, tn, to = teng.step(torch.from_numpy(seeds_all[i]),
-                                  int(nums_all[i]), jax_uniforms(key, shapes))
+                                  int(nums_all[i]),
+                                  jax_draws(cfg)(key, shapes))
         assert int(tn) == int(jn), i
         assert bool(to) == bool(jo) is False
         assert abs(float(tl) - float(jl)) < 1e-4, (i, float(tl), float(jl))
@@ -69,18 +86,16 @@ def test_gcn_engine_steps_match_reference(ds):
     steps_match_reference(ds, GCN_CFG)
 
 
-@pytest.mark.parametrize("cfg", [CFG, GCN_CFG], ids=["graphsage", "gcn"])
-def test_evaluate_matches_reference(ds, cfg):
+def evaluate_matches_reference(ds, cfg):
     """The reference's evaluation: the test set, last-hop dedup for every
     model, its own key per step; injected here as uniforms."""
-    jeng = JEngine(cfg, ds)
-    teng = OneChipEngine(cfg, ds, "cpu")
-    teng.model.load_state_dict(params_from_flax(jeng.state.params))
+    jeng, teng = engines(ds, cfg)
     base = jax.random.key(cfg.seed + 12345)
-    shapes = uniform_shapes(teng.plan, cfg.sample_type, True)
+    shapes = teng.uniform_shapes(True)
     gen_state = teng.sample_gen.get_state()
     acc = teng.evaluate(
-        rand=lambda step: jax_uniforms(jax.random.fold_in(base, step), shapes))
+        rand=lambda step: jax_draws(cfg)(jax.random.fold_in(base, step),
+                                         shapes))
     assert abs(acc - jeng.evaluate()) <= 1.0 / len(ds.test_set)
     assert 0.0 < acc < 1.0
     assert torch.equal(teng.sample_gen.get_state(), gen_state)
@@ -88,6 +103,11 @@ def test_evaluate_matches_reference(ds, cfg):
     # generator
     assert teng.evaluate() == teng.evaluate()
     assert torch.equal(teng.sample_gen.get_state(), gen_state)
+
+
+@pytest.mark.parametrize("cfg", [CFG, GCN_CFG], ids=["graphsage", "gcn"])
+def test_evaluate_matches_reference(ds, cfg):
+    evaluate_matches_reference(ds, cfg)
 
 
 def test_run_epochs_equals_run_epoch_calls(ds):
@@ -125,7 +145,7 @@ def test_feature_table_over_budget_raises(ds):
 
 @pytest.mark.parametrize("kw", [{"sample_type": SampleType.KHOP1},
                                 {"cache_percentage": 0.1},
-                                {"model": "gat"}])
+                                {"sample_type": SampleType.WEIGHTED_KHOP}])
 def test_unported_configurations_raise(ds, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OneChipEngine(CFG.replace(**kw), ds, "cpu")

@@ -275,7 +275,15 @@ def test_two_layer_graphsage_matches_composed_golden():
     np.testing.assert_allclose(out, gold, rtol=1e-4, atol=1e-4)
 
 
-def test_other_models_are_not_ported_yet():
-    for name in ("gat", "pinsage"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("name", ["graphsage", "gcn", "pinsage", "gat",
+                                  "unknown"])
+def test_build_model_builds_every_model(name):
+    """All four model families build as torch modules with float32
+    parameters; an unknown name raises."""
+    if name == "unknown":
+        with pytest.raises(ValueError, match="unknown model"):
             build_model(name, 4, 8, 2, 2)
+        return
+    m = build_model(name, 4, 8, 2, 2, generator=torch.Generator().manual_seed(0))
+    assert isinstance(m, torch.nn.Module) and len(m.layers) == 2
+    assert all(p.dtype == torch.float32 for p in m.parameters())

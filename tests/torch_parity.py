@@ -30,7 +30,8 @@ def block_to_torch(b):
     return tsampling.Block(
         src_local=to_torch(b.src_local), dst_local=to_torch(b.dst_local),
         mask=to_torch(b.mask), num_src=to_torch(b.num_src),
-        num_dst=to_torch(b.num_dst), src_out_deg=opt(b.src_out_deg),
+        num_dst=to_torch(b.num_dst), weights=opt(b.weights),
+        src_out_deg=opt(b.src_out_deg),
         slots_per_dst=b.slots_per_dst,
         src_slice_offset=b.src_slice_offset, tier_split=b.tier_split,
         dst_invperm=opt(b.dst_invperm),
@@ -54,6 +55,23 @@ def jax_uniforms(key, shapes):
             for hop, s in enumerate(shapes)]
 
 
+def jax_walk_draws(key, L, n, W):
+    """The draws of the reference's ``random_walk_visits(key, ...)`` as one
+    ``[L, 2, n, W]`` tensor: split(key, L) step keys, each split into the
+    pick's and the death draw's key, then uniform(k, (n, W)) each."""
+    return to_torch(jnp.stack([
+        jnp.stack([jax.random.uniform(k, (n, W))
+                   for k in jax.random.split(step)])
+        for step in jax.random.split(key, L)]))
+
+
+def jax_walk_uniforms(key, shapes):
+    """The reference random walk's per-hop draws: hop h walks with
+    fold_in(key, h) (``random_walk_topk``)."""
+    return [jax_walk_draws(jax.random.fold_in(key, hop), L, n, W)
+            for hop, (L, _, n, W) in enumerate(shapes)]
+
+
 def assert_blocks_equal(jb, tb):
     for f in ("src_local", "dst_local", "mask", "num_src", "num_dst"):
         np.testing.assert_array_equal(
@@ -61,7 +79,7 @@ def assert_blocks_equal(jb, tb):
     assert jb.slots_per_dst == tb.slots_per_dst
     assert jb.src_slice_offset == tb.src_slice_offset
     assert jb.tier_split == tb.tier_split
-    for f in ("dst_invperm", "src_out_deg"):
+    for f in ("dst_invperm", "src_out_deg", "weights"):
         jv, tv = getattr(jb, f), getattr(tb, f)
         assert (jv is None) == (tv is None), f
         if jv is not None:
