@@ -10,7 +10,8 @@ Phases, none of which catches a failure (any failure exits non-zero):
      fgnn_tpu_torch/csrc with nvcc for sm_90a, one nvcc each, together;
   3. row gather against its plain version: bit-equal (torch.equal) at the
      main path's two shapes and on a matrix of dtypes, widths, alignments
-     and id patterns; both timed with CUDA events at the main-path shapes;
+     and id patterns; both, and ``torch.index_select`` over the same rows,
+     timed with CUDA events at the main-path shapes;
   4. small input: the port's GraphSAGE training step on the card against
      the same step on the CPU, from the same parameters and injected
      uniforms;
@@ -46,9 +47,26 @@ Phases, none of which catches a failure (any failure exits non-zero):
      last hop) on the same graph: two epochs through run_epochs, the row
      gather's launch count, then evaluate(). Its loss is held to fall from
      epoch 0, not to end below ln 172 (see gat_phase).
-The 1M-node graph is built once and shared by 5, 9, 11 and 13. Prints a
-JSON line of kernel results, then as its last line
-``{"ok": true, "device": {...}}``.
+ 14. small input, the host-resident table behind the static cache
+     (PRESAMPLE 25%) and the dynamic cache: card against CPU from the same
+     parameters and injected uniforms (presample included), misses per
+     step equal and losses within 1e-4; each combine bit-equal to its plain
+     version on the card;
+ 15. the GraphSAGE main-path configuration with the feature table in host
+     memory (feat_budget=0): hit rates of PRESAMPLE, DEGREE and RANDOM at
+     10% and 20% cache, one epoch each; the static combine against its
+     plain version at the main path's shapes; two pipelined epochs through
+     run_epochs at PRESAMPLE 10% (a third under torch.profiler for the
+     card's busy share, a fourth with half the host's intra-op threads),
+     eight steps of it stage by stage with a sync after each, one
+     synchronous epoch of the same, and one epoch each of the uncached host
+     path and of the dynamic cache; epoch times, miss bytes, peak memory,
+     row-gather launches per step, the host gather's and the pinned
+     upload's GB/s.
+The 1M-node graph is built once and shared by 5, 9, 11, 13 and 15. Prints
+a JSON line of kernel results (each with its bound on this card and the
+time of the one PyTorch call that computes the same function), then as its
+last line ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -70,6 +88,8 @@ JAX_EPOCH1_LOSS = 3.658
 JAX_EDGES_PER_EPOCH = (22_494_030, 22_511_196)
 EXPECTED_EDGES = 22.5e6
 NUM_CLASS = 172
+# cache shares of phase 15's hit-rate runs
+CACHE_SHARES = (0.1, 0.2)
 # gather_rows launches in one GAT training step at [25, 10] with the tiered
 # no-dedup last hop (forward only; the backward is a torch scatter-add):
 GAT_LAUNCHES_PER_STEP = (
@@ -80,6 +100,15 @@ GAT_LAUNCHES_PER_STEP = (
     + 1  # layer 2: er[dst]
     + 1  # layer 2: feat[src]
 )
+
+
+# the H100 SXM data sheet's memory rate (700 W); a kernel's bound is the
+# bytes it must move over this rate (both kernels move bytes, no products)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(moved_bytes):
+    return moved_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def check(ok, msg):
@@ -123,15 +152,26 @@ def kernel_phase(dev, card):
         table = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
         ids = padded_ids(n, m, 0.3, gen, dev)
         max_err = max(max_err, check_equal(table, ids, name))
-        k_ms, p_ms = median_ms([lambda: gather_rows(table, ids),
-                                lambda: gather_rows_reference(table, ids)])
+        # the one PyTorch call for the same rows: index_select over the ids
+        # with padding clamped to row 0 (it cannot write zero rows itself)
+        rows = ids.clamp(min=0).long()
+        k_ms, p_ms, l_ms = median_ms([
+            lambda: gather_rows(table, ids),
+            lambda: gather_rows_reference(table, ids),
+            lambda: torch.index_select(table, 0, rows)])
         valid = int((ids >= 0).sum())
+        # each valid row read once, every output row written once, the ids
         moved = (valid + m) * d * table.element_size() + m * 4
-        timing[name] = (k_ms, p_ms)
-        for who, ms in (("kernel", k_ms), ("plain", p_ms)):
+        timing[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "bound_ms": bound_ms(moved)}
+        for who, ms in (("kernel", k_ms), ("plain", p_ms),
+                        ("index_select", l_ms)):
             print(f"  {name} [{n}, {d}] bf16, {m} ids ({m - valid} padding), "
                   f"{who}: {ms:.4f} ms, {m / ms / 1e3:.1f} M rows/s, "
                   f"{moved / ms / 1e6:.1f} GB/s ({card})")
+        print(f"  {name}: bound {timing[name]['bound_ms']:.4f} ms ({moved} B "
+              f"at {HBM_BYTES_PER_S / 1e12} TB/s), kernel at "
+              f"{timing[name]['bound_ms'] / k_ms:.1%} of it")
 
     # dtypes, widths, ragged M, repeated ids, all padding, M = 1
     cases = 0
@@ -170,8 +210,8 @@ def kernel_phase(dev, card):
 def small_engines(dev, model, **kw):
     """The port's engine on the CPU and on the card, with the same
     parameters, over a 2000-node graph."""
-    from fgnn_tpu.config import RunConfig, SampleType
-    from fgnn_tpu.data import make_synthetic_dataset
+    from fgnn_tpu_torch.config import RunConfig, SampleType
+    from fgnn_tpu_torch.data import make_synthetic_dataset
     from fgnn_tpu_torch.engine import OneChipEngine
 
     ds = make_synthetic_dataset(num_node=2000, avg_degree=8, feat_dim=32,
@@ -216,7 +256,7 @@ def small_input_phase(dev, model="graphsage", fanout=(10, 3), **kw):
 
 def big_dataset():
     """The 1M-node / avg-degree-15 synthetic graph of bench.py, built once."""
-    from fgnn_tpu.data import make_synthetic_dataset
+    from fgnn_tpu_torch.data import make_synthetic_dataset
 
     t0 = time.perf_counter()
     ds = make_synthetic_dataset(num_node=1_000_000, avg_degree=15,
@@ -229,7 +269,7 @@ def big_dataset():
 
 def main_path_phase(dev, card, ds):
     import torch
-    from fgnn_tpu.config import RunConfig, SampleType
+    from fgnn_tpu_torch.config import RunConfig, SampleType
     from fgnn_tpu_torch.engine import OneChipEngine
     from fgnn_tpu_torch.ops import cuda_lib
 
@@ -337,12 +377,15 @@ def stream_check_phase(dev, card):
     moved = 2 * n * d * 4
     timing = {}
     for chunk in STREAM_CHUNKS:
+        # plain version and library call are one op here: torch.add(x, 1)
         k_ms, p_ms = median_ms([lambda: stream_add_one(full, chunk),
                                 lambda: stream_add_one_reference(full)])
-        timing[chunk] = (k_ms, p_ms)
+        timing[chunk] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": p_ms,
+                         "bound_ms": bound_ms(moved)}
         print(f"  [{n}, {d}] f32 chunk {chunk}: kernel {k_ms:.4f} ms "
               f"({moved / k_ms / 1e6:.1f} GB/s r+w), plain x + 1 "
-              f"{p_ms:.4f} ms ({moved / p_ms / 1e6:.1f} GB/s) ({card})")
+              f"{p_ms:.4f} ms ({moved / p_ms / 1e6:.1f} GB/s); bound "
+              f"{bound_ms(moved):.4f} ms ({card})")
     return max_err, timing
 
 
@@ -425,7 +468,7 @@ def numpy_rw_first_step_edges(ds, cfg, seeds, num_seeds):
 def big_engine(dev, ds, **kw):
     """The port's engine at batch 8000, hidden 256, bf16, dropout 0.5, lr
     0.003 on the 1M-node graph, with ``kw`` on top."""
-    from fgnn_tpu.config import RunConfig
+    from fgnn_tpu_torch.config import RunConfig
     from fgnn_tpu_torch.engine import OneChipEngine
 
     cfg = RunConfig(batch_size=8000, num_hidden=256, dropout=0.5, lr=0.003,
@@ -499,7 +542,7 @@ def train_phase(dev, card, ds, eng, launches_per_step, below_uniform=True):
 def gcn_phase(dev, card, ds):
     """GCN of the source paper's Table 1 (exp/table1/run.py: fanout 5 10
     15) at full width: two epochs through run_epochs, then evaluate()."""
-    from fgnn_tpu.config import SampleType
+    from fgnn_tpu_torch.config import SampleType
 
     eng = big_engine(dev, ds, model="gcn", fanout=(5, 10, 15),
                      sample_type=SampleType.KHOP2)
@@ -516,7 +559,7 @@ def pinsage_phase(dev, card, ds):
     examples/common_config.py defaults: 3 hops of num_neighbor 5, 4 walks
     of length 3, restart 0.5): two epochs through run_epochs, then
     evaluate()."""
-    from fgnn_tpu.config import SampleType
+    from fgnn_tpu_torch.config import SampleType
 
     eng = big_engine(dev, ds, model="pinsage",
                      sample_type=SampleType.RANDOM_WALK, num_layer_rw=3,
@@ -581,7 +624,7 @@ def gat_phase(dev, card, ds):
     """GAT, 8 heads x 256 hidden, at [25, 10] (GraphSAGE's sampler, the
     tiered no-dedup last hop): two epochs through run_epochs, then
     evaluate(); sampled edges within 1% of 22.5M an epoch."""
-    from fgnn_tpu.config import SampleType
+    from fgnn_tpu_torch.config import SampleType
 
     eng = big_engine(dev, ds, model="gat", fanout=(25, 10),
                      sample_type=SampleType.KHOP2)
@@ -599,6 +642,316 @@ def gat_phase(dev, card, ds):
     return launches
 
 
+def cache_small_phase(dev):
+    """Host-resident table on a small input, static cache (PRESAMPLE 25%,
+    the presample's uniforms injected) and dynamic cache: three steps on
+    the card against the CPU from the same parameters and uniforms, misses
+    and edges equal, losses within 1e-4 (float32 sums in another order);
+    then each combine on the card bit-equal to its plain version."""
+    import torch
+    from fgnn_tpu_torch.cache.dynamic import combine_feats, combine_feats_reference
+    from fgnn_tpu_torch.cache.manager import combine_reference
+    from fgnn_tpu_torch.config import CachePolicy, RunConfig, SampleType
+    from fgnn_tpu_torch.data import make_synthetic_dataset
+    from fgnn_tpu_torch.engine import OneChipEngine
+
+    ds = make_synthetic_dataset(num_node=2000, avg_degree=8, feat_dim=32,
+                                num_class=8, train_frac=0.5, seed=42)
+    base = RunConfig(model="graphsage", fanout=(10, 3), batch_size=128,
+                     num_hidden=32, sample_type=SampleType.KHOP2, dropout=0.0,
+                     lr=0.003, compute_dtype="float32")
+    # the presample draws are fixed per (epoch, step); their shapes are the
+    # dedup sampler's under the plan, which the cache does not change
+    shapes = OneChipEngine(base, ds, "cpu", feat_budget=0).uniform_shapes(True)
+
+    def draws(epoch, step, device="cpu"):
+        gen = torch.Generator().manual_seed(1000 * epoch + step)
+        return [torch.rand(s, generator=gen).to(device) for s in shapes]
+
+    for policy, pct in ((CachePolicy.PRESAMPLE, 0.25),
+                        (CachePolicy.DYNAMIC_CACHE, 0.1)):
+        cfg = base.replace(cache_policy=policy, cache_percentage=pct)
+        cpu = OneChipEngine(cfg, ds, "cpu", feat_budget=0,
+                            presample_rand=draws)
+        gpu = OneChipEngine(cfg, ds, dev, feat_budget=0,
+                            presample_rand=lambda e, s: draws(e, s, dev))
+        gpu.model.load_state_dict(cpu.model.state_dict())
+        check(not gpu.feat_on_device and gpu.dedup_last_hop,
+              "the small cached engine must keep its table on the host")
+        if cpu.cache is not None:
+            check(torch.equal(cpu.cache.cache_table,
+                              gpu.cache.cache_table.cpu()),
+                  "presample rankings differ between card and CPU")
+        gen = torch.Generator().manual_seed(3)
+        for seeds, n, step in cpu.shuffler.batches(0):
+            rand = [torch.rand(s, generator=gen) for s in shapes]
+            lc, _, ec, _ = cpu.step(torch.as_tensor(seeds), n, rand)
+            lg, _, eg, _ = gpu.step(torch.as_tensor(seeds, device=dev), n,
+                                    [r.to(dev) for r in rand])
+            check(cpu.last_rows == gpu.last_rows,
+                  f"{policy.name} step {step}: (misses, rows) cpu "
+                  f"{cpu.last_rows} gpu {gpu.last_rows}")
+            check(int(ec) == int(eg), f"step {step}: edges {int(ec)} != {int(eg)}")
+            check(abs(float(lc) - float(lg)) < 1e-4,
+                  f"{policy.name} step {step}: loss cpu {float(lc)} gpu "
+                  f"{float(lg)}")
+            print(f"  {policy.name} {pct:.0%} step {step}: loss cpu "
+                  f"{float(lc):.6f} gpu {float(lg):.6f}, misses/rows "
+                  f"{gpu.last_rows}, edges {int(eg)}")
+            if step == 2:
+                break
+        batch = gpu.sample(torch.as_tensor(seeds, device=dev), n,
+                           [r.to(dev) for r in rand], True)
+        if gpu.cache is not None:
+            index = gpu.cache.get_miss_cache_index(batch.input_nodes)
+            rows, miss, _ = gpu.cache.upload_miss(index)
+            out = gpu.cache.combine(index, rows, miss)
+            ref = combine_reference(gpu.cache.cache_data, index, rows)
+        else:
+            dyn = gpu.dyn_cache
+            split = dyn.split_and_advance(batch.input_nodes)
+            f = dyn.host.fetch(split.miss_ids,
+                               torch.stack([split.num_miss, split.num_hit]))
+            rows, (miss, _), ready = dyn.host.load(f, dyn.dtype)
+            dyn.host.ready(ready)
+            out = combine_feats(dyn.state.feats, split, rows, miss)
+            ref = combine_feats_reference(dyn.state.feats, split, rows)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"{policy.name} combine != plain version")
+        print(f"  {policy.name} combine on the card bit-equal to its plain "
+              f"version ({miss} misses of {int(batch.num_input)} rows)")
+
+
+def host_engine(dev, ds, **kw):
+    """The GraphSAGE main-path configuration (bench.py) with the feature
+    table in host memory, and ``kw`` on top."""
+    from fgnn_tpu_torch.config import RunConfig, SampleType
+    from fgnn_tpu_torch.engine import OneChipEngine
+
+    cfg = RunConfig(model="graphsage", fanout=(25, 10), batch_size=8000,
+                    num_hidden=256, sample_type=SampleType.KHOP2, dropout=0.5,
+                    lr=0.003, compute_dtype="bfloat16").replace(**kw)
+    t0 = time.perf_counter()
+    eng = OneChipEngine(cfg, ds, dev, feat_budget=0)
+    check(not eng.feat_on_device and eng.dedup_last_hop,
+          "feat_budget=0 must keep the table on the host and dedup every hop")
+    print(f"  engine init {time.perf_counter() - t0:.1f} s "
+          f"({cfg.cache_policy.name if cfg.use_cache else 'no cache'} "
+          f"{cfg.cache_percentage:.0%}); final input cap "
+          f"{eng.plan.final_input_cap}")
+    return eng
+
+
+def host_epochs(dev, card, eng, label, n=1, start=0):
+    """``n`` epochs through run_epochs with the launch count, the host
+    gather's and upload's counters and the peak memory taken over them."""
+    import torch
+    from fgnn_tpu_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng.host_feat.reset_counters()
+    cuda_lib.reset_launches()
+    results = eng.run_epochs(start, n)
+    launches = cuda_lib.launches.get("gather_rows", 0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    c = eng.host_feat.counters()
+    for r in results:
+        r["hit_rate"] = 1.0 - r["miss_bytes"] / r["feature_bytes"]
+        print(f"  {label} epoch {r['epoch']}: loss {r['loss']:.4f} acc "
+              f"{r['acc']:.4f} epoch_time {r['epoch_time']:.4f} s (mean step "
+              f"{r['epoch_time'] / r['num_step'] * 1e3:.2f} ms over "
+              f"{r['num_step']}); hit rate {r['hit_rate']:.4f}; miss_bytes "
+              f"{r['miss_bytes']} of feature_bytes {r['feature_bytes']}; "
+              f"sampled_edges {r['sampled_edges']} ({card})")
+    steps = sum(r["num_step"] for r in results)
+    print(f"  {label}: gather_rows launches {launches} ({launches / steps:g} "
+          f"a step); host gather {c['gather_rows']} rows, {c['gather_bytes']} "
+          f"B in {c['gather_s']:.4f} s = "
+          f"{c['gather_bytes'] / max(c['gather_s'], 1e-9) / 1e9:.2f} GB/s; "
+          f"pinned upload {c['upload_bytes']} B in {c['upload_ms']:.4f} ms "
+          f"device time = {c['upload_bytes'] / max(c['upload_ms'], 1e-9) / 1e6:.2f}"
+          f" GB/s; overflow {eng.last_overflowed}; peak memory {peak} B "
+          f"({card})")
+    check(not eng.last_overflowed, f"{label}: an epoch overflowed its caps")
+    return results, launches, steps
+
+
+def device_busy(dev, fn):
+    """Run ``fn`` under torch.profiler: (wall s, the union of the card's
+    kernel and copy intervals in s, the top kernels by device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return wall, busy / 1e6, top
+
+
+def cache_stages(dev, card, eng, steps=8):
+    """Where a static-cache step's time goes: ``steps`` steps run stage by
+    stage with a sync after each (host clock), medians in ms. The host
+    gather (conversion included) and the upload are split by the loader's
+    own counters (host clock and CUDA events)."""
+    import statistics
+
+    import torch
+
+    host, cache = eng.host_feat, eng.cache
+    seeds_all, nums_all = eng.shuffler.epoch_arrays(5)
+    gen = torch.Generator(dev).manual_seed(9)
+    names = ("sample", "split", "ids to host", "gather+upload", "combine",
+             "train")
+    spans = {k: [] for k in names + ("host gather", "upload")}
+    for i in range(steps):
+        t = [time.perf_counter()]
+
+        def stage():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        batch = eng.sample(torch.as_tensor(seeds_all[i], device=dev),
+                           int(nums_all[i]), gen, True)
+        stage()
+        index = cache.get_miss_cache_index(batch.input_nodes)
+        stage()
+        f = host.fetch(index.miss_ids, torch.stack([index.num_miss,
+                                                    index.num_hit]))
+        stage()
+        host.reset_counters()
+        rows, (miss, _), ready = host.load(f, cache.dtype)
+        host.ready(ready)
+        stage()
+        c = host.counters()
+        feats = cache.combine(index, rows, miss)
+        stage()
+        eng.train_on(batch, feats)
+        stage()
+        for k, a, b in zip(names, t, t[1:]):
+            spans[k].append((b - a) * 1e3)
+        spans["host gather"].append(c["gather_s"] * 1e3)
+        spans["upload"].append(c["upload_ms"])
+    med = {k: statistics.median(v) for k, v in spans.items()}
+    print(f"  synced stages of a PRESAMPLE 10% step, median of {steps} (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+          + f"; sum of stages {sum(med[k] for k in names):.2f} ({card})")
+
+
+def cache_phase(dev, card, ds):
+    """Phase 15 (see the module docstring). Returns the row-gather launches
+    over its full runs."""
+    import torch
+    from fgnn_tpu_torch.cache.manager import combine_reference
+    from fgnn_tpu_torch.config import CachePolicy
+
+    # --- hit rates by policy ---------------------------------------------
+    hits = {}
+    for policy in (CachePolicy.PRESAMPLE, CachePolicy.DEGREE,
+                   CachePolicy.RANDOM):
+        for pct in CACHE_SHARES:
+            eng = host_engine(dev, ds, cache_policy=policy,
+                              cache_percentage=pct)
+            (r,), _, _ = host_epochs(dev, card, eng, f"{policy.name} {pct:.0%}")
+            hits[policy.name, pct] = r["hit_rate"]
+            del eng
+    print("  hit rates (one epoch each): " + "; ".join(
+        f"{p} {s:.0%} {h:.4f}" for (p, s), h in hits.items()) + f" ({card})")
+    for pct in CACHE_SHARES:
+        pre = hits["PRESAMPLE", pct]
+        check(pre > hits["DEGREE", pct] and pre > hits["RANDOM", pct],
+              f"presample's hit rate {pre} is not above degree's and "
+              f"random's at {pct:.0%}")
+        check(abs(hits["RANDOM", pct] - pct) < 0.02,
+              f"random's hit rate {hits['RANDOM', pct]} is not within 2 "
+              f"points of {pct:.0%}")
+
+    # --- the static combine at the main path's shapes ---------------------
+    eng = host_engine(dev, ds, cache_policy=CachePolicy.PRESAMPLE,
+                      cache_percentage=0.1)
+    check(eng.pipelined, "PRESAMPLE 10% must run the pipelined epoch")
+    seeds_all, nums_all = eng.shuffler.epoch_arrays(0)
+    batch = eng.sample(torch.as_tensor(seeds_all[0], device=dev),
+                       int(nums_all[0]), torch.Generator(dev).manual_seed(7),
+                       True)
+    index = eng.cache.get_miss_cache_index(batch.input_nodes)
+    rows, miss, hit = eng.cache.upload_miss(index)
+    out = eng.cache.combine(index, rows, miss)
+    ref = combine_reference(eng.cache.cache_data, index, rows)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), "static combine != plain version at the "
+          "main path's shapes")
+    print(f"  combine bit-equal to its plain version: cache "
+          f"{list(eng.cache.cache_data.shape)} bf16, {index.hit.shape[0]} ids, "
+          f"{hit} hits, {miss} misses")
+    del batch, index, rows, out, ref
+
+    # --- full runs --------------------------------------------------------
+    results, launches, steps = host_epochs(dev, card, eng,
+                                           "PRESAMPLE 10% pipelined", n=2)
+    check(launches == 3 * steps, f"{launches} launches for {steps} steps "
+          "(the combine and two gather_src a step)")
+    l0, l1 = results[0]["loss"], results[1]["loss"]
+    check(math.isfinite(l0) and math.isfinite(l1), f"losses {l0}, {l1}")
+    check(l1 < l0, f"epoch-1 loss {l1} is not below epoch 0's {l0}")
+    check(l1 < math.log(NUM_CLASS), f"epoch-1 loss {l1} is not below ln 172")
+    total = launches
+    wall, busy, top = device_busy(dev, lambda: eng.run_epoch(2))
+    print(f"  PRESAMPLE 10% pipelined epoch 2 under torch.profiler: wall "
+          f"{wall:.4f} s, card busy {busy:.4f} s ({busy / wall:.1%}); top "
+          "device time: " + ", ".join(f"{n[:40]} {us / 1e3:.1f} ms"
+                                      for n, us in top) + f" ({card})")
+    # the host gather shares the host's cores with the thread that launches
+    # the card's work: one epoch with half the intra-op threads
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(threads // 2, 1))
+    try:
+        host_epochs(dev, card, eng, f"PRESAMPLE 10% pipelined, "
+                    f"{torch.get_num_threads()} of {threads} host threads",
+                    start=3)
+    finally:
+        torch.set_num_threads(threads)
+    cache_stages(dev, card, eng)
+    del eng
+
+    eng = host_engine(dev, ds, cache_policy=CachePolicy.PRESAMPLE,
+                      cache_percentage=0.1, pipeline=False)
+    check(not eng.pipelined, "pipeline=False must run the synchronous epoch")
+    host_epochs(dev, card, eng, "PRESAMPLE 10% synchronous")
+    del eng
+
+    for label, kw, per_step in (
+            ("no cache (host path)", {}, 2),
+            ("DYNAMIC_CACHE pipelined",
+             dict(cache_policy=CachePolicy.DYNAMIC_CACHE, cache_percentage=0.1),
+             3)):
+        eng = host_engine(dev, ds, **kw)
+        (r,), launches, steps = host_epochs(dev, card, eng, label)
+        check(math.isfinite(r["loss"]), f"{label}: loss {r['loss']}")
+        check(launches == per_step * steps,
+              f"{label}: {launches} launches for {steps} steps")
+        total += launches
+        del eng
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -606,12 +959,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs only on a CUDA device", file=sys.stderr)
         return 1
-    from fgnn_tpu.config import SampleType
+    from fgnn_tpu_torch.config import SampleType
     from fgnn_tpu_torch.ops import cuda_lib
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/13] device")
+    print("[1/15] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -623,75 +976,83 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/13] build")
+    print("[2/15] build")
     kernels = ("gather_rows", "stream_add_one")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/13] row gather against plain version")
+    print("[3/15] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/13] small input, GraphSAGE: card against CPU")
+    print("[4/15] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/13] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/15] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
     sage_launches = main_path_phase(dev, card, ds)
 
-    print("[6/13] streaming pass against plain version")
+    print("[6/15] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/13] gather campaign: stream and kernel phases")
+    print("[7/15] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/13] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/15] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/13] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    print("[9/15] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
     gcn_launches = gcn_phase(dev, card, ds)
 
-    print("[10/13] small input, PinSAGE: card against CPU")
+    print("[10/15] small input, PinSAGE: card against CPU")
     small_input_phase(dev, model="pinsage",
                       sample_type=SampleType.RANDOM_WALK)
 
-    print("[11/13] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+    print("[11/15] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
           "evaluate")
     pinsage_launches = pinsage_phase(dev, card, ds)
 
-    print("[12/13] small input, GAT: card against CPU, eval-mode logits and "
+    print("[12/15] small input, GAT: card against CPU, eval-mode logits and "
           "gradients")
     gat_small_phase(dev)
 
-    print("[13/13] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+    print("[13/15] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
           "evaluate")
     gat_launches = gat_phase(dev, card, ds)
+
+    print("[14/15] small input, host-resident table, PRESAMPLE and "
+          "DYNAMIC_CACHE: card against CPU")
+    cache_small_phase(dev)
+
+    print("[15/15] GraphSAGE main path, feature table in host memory: hit "
+          "rates, pipelined cache epochs, host path, dynamic cache")
+    cache_launches = cache_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
-    k_ms, p_ms = timing["feature gather"]
-    best = min(s_timing, key=lambda c: s_timing[c][0])
-    print(f"  stream_add_one ms/plain_ms below: chunk {best}, the fastest")
-    print(json.dumps({"kernels": [{
-        "name": "gather_rows",
-        "route": "cuda",
-        "source": "fgnn_tpu_torch/csrc/gather_rows.cu",
-        "replaces": "fgnn_tpu/ops/pallas_gather2.py:131",
-        "launches": (sage_launches + gcn_launches + pinsage_launches
-                     + gat_launches),
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "stream_add_one",
-        "route": "cuda",
-        "source": "fgnn_tpu_torch/csrc/stream_add_one.cu",
-        "replaces": "tools/gather_campaign.py:129",
-        "launches": s_launches,
-        "max_abs_err": s_err,
-        "ms": s_timing[best][0],
-        "plain_ms": s_timing[best][1],
-    }]}))
+    best = min(s_timing, key=lambda c: s_timing[c]["ms"])
+    print(f"  stream_add_one times below: chunk {best}, the fastest; "
+          "gather_rows times: the feature-gather shape")
+    print(json.dumps({"kernels": [dict(
+        name="gather_rows",
+        route="cuda",
+        source="fgnn_tpu_torch/csrc/gather_rows.cu",
+        replaces="fgnn_tpu/ops/pallas_gather2.py:131",
+        launches=(sage_launches + gcn_launches + pinsage_launches
+                  + gat_launches + cache_launches),
+        max_abs_err=max_err,
+        bound_by="bytes",
+        **timing["feature gather"],
+    ), dict(
+        name="stream_add_one",
+        route="cuda",
+        source="fgnn_tpu_torch/csrc/stream_add_one.cu",
+        replaces="tools/gather_campaign.py:129",
+        launches=s_launches,
+        max_abs_err=s_err,
+        bound_by="bytes",
+        **s_timing[best],
+    )]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

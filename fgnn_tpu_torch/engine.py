@@ -1,35 +1,52 @@
-"""Single-device engine, arch1 (port of ``fgnn_tpu/engine.py::OneChipEngine``).
+"""Single-device engine (port of ``fgnn_tpu/engine.py::OneChipEngine``).
 
-Sample, extract and train on one device with the feature table resident in
-device memory. The step is a plain per-step loop: sample -> feature gather
-(the Hopper row-gather kernel) -> labels -> train. Statistics stay on the
-device until the end of the run, which syncs once (:meth:`run_epochs`).
+Sample, extract and train on one device. The step is a plain per-step loop:
+sample -> features -> labels -> train. Where the feature table lives is the
+reference's rule: on the device when it fits the budget, else in host
+memory (``feat_on_device``).
 
-Ported: the HBM-resident path for GraphSAGE, GCN, GAT (KHOP0/KHOP2) and
-PinSAGE (RANDOM_WALK), and evaluation. Not yet: the other samplers,
-host-resident features and the caches, checkpoints, sanity checks and
-profiling (ROADMAP.md).
+* Device-resident table (arch1): the features come from the Hopper
+  row-gather kernel. Statistics stay on the device until the end of the
+  run, which syncs once (:meth:`run_epochs`).
+* Host-resident table (arch2/3/4): every hop dedups, the last one
+  included, and each step syncs on its ids. Without a cache the batch's
+  rows are gathered on the host and uploaded in float32, as in the
+  reference. With ``cache_percentage > 0`` a static cache (ranked by
+  presampling, degree, ...) or the dynamic previous-batch cache holds rows
+  on the device; only the misses are gathered on the host and uploaded, in
+  the staging dtype, and the combine runs the row-gather kernel over the
+  cache. With ``cfg.pipeline`` (the default) the host gather and upload of
+  batch k+1 run on a worker thread and a copy stream while batch k trains.
+
+Ported: GraphSAGE, GCN, GAT (KHOP0/KHOP2) and PinSAGE (RANDOM_WALK), the
+device-resident and host-resident paths, the static and dynamic caches, and
+evaluation. Not yet: the other samplers (KHOP1, weighted), checkpoints,
+sanity checks and profiling levels (ROADMAP.md).
 """
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from fgnn_tpu.config import RunConfig, SampleType
-from fgnn_tpu.data.schema import Dataset
-from fgnn_tpu.utils import get_logger
-
+from .cache.dynamic import DynamicFeatureCache
+from .cache.manager import FeatureCache
+from .cache.policy import build_ranking
+from .cache.presample import RandFn, presample_ranking, presample_static_ranking
+from .config import CachePolicy, RunConfig, SampleType
+from .data.schema import Dataset
 from .models.gnn import build_model
-from .ops.extract import device_gather, label_gather, mock_gather
+from .ops.extract import HostFeatures, device_gather, label_gather, mock_gather
 from .ops.padding import make_plan
 from .ops.random_walk import random_walk_topk, walk_uniform_shapes
 from .ops.reference_impl import calibrate_caps
 from .ops.sampling import CSRGraph, multi_layer_sample, uniform_shapes
 from .parallel.shuffler import EpochShuffler
 from .train.loop import eval_step, make_optimizer, train_step
+from .utils import get_logger
 
 log = get_logger(__name__)
 
@@ -45,18 +62,17 @@ FEAT_MEMORY_SHARE = 0.5
 class OneChipEngine:
     def __init__(self, cfg: RunConfig, ds: Dataset,
                  device: Union[str, torch.device],
-                 feat_budget: Optional[int] = None):
+                 feat_budget: Optional[int] = None,
+                 presample_rand: Optional[RandFn] = None):
         """``feat_budget``: bytes the feature table may take on the device;
         by default ``FEAT_MEMORY_SHARE`` of a CUDA device's memory (no limit
-        on the CPU). A table that does not fit raises."""
+        on the CPU). A table over it stays in host memory. ``presample_rand
+        (epoch, step)`` injects the presample's per-hop uniforms."""
         cfg.validate()
         if cfg.sample_type not in (SampleType.KHOP0, SampleType.KHOP2,
                                    SampleType.RANDOM_WALK):
             raise NotImplementedError(
                 f"{cfg.sample_type} is not ported yet (ROADMAP.md A12)")
-        if cfg.use_cache:
-            raise NotImplementedError(
-                "feature caches are not ported yet (ROADMAP.md A13)")
         self.cfg = cfg
         self.ds = ds
         self.device = torch.device(device)
@@ -80,16 +96,26 @@ class OneChipEngine:
             indices=torch.as_tensor(indices.astype(np.int32), device=dev),
         )
 
+        # --- feature placement: the device if the table fits ---------------
+        feat_dtype = self.compute_dtype or torch.float32
+        feat_bytes = ds.feat.shape[0] * ds.feat.shape[1] * feat_dtype.itemsize
+        if feat_budget is None and dev.type == "cuda":
+            total = torch.cuda.get_device_properties(dev).total_memory
+            feat_budget = int(total * FEAT_MEMORY_SHARE)
+        self.feat_on_device = feat_budget is None or feat_bytes <= feat_budget
+
         # --- static plan via NumPy calibration -----------------------------
-        # the feature table is on the device, so the last hop skips dedup
-        # (duplicate feature-row reads cost less than the dedup sort), EXCEPT
-        # for GCN: its 1/sqrt(out-degree) source normalisation counts block
+        # with the table on the device the last hop skips dedup (duplicate
+        # feature-row reads cost less than the dedup sort), EXCEPT for GCN:
+        # its 1/sqrt(out-degree) source normalisation counts block
         # occurrences, which skipping dedup changes, and it reads those
-        # counts from the dedup sort. The uniform samplers' no-dedup last
-        # hop is degree-tiered; PinSAGE's walks every hop at K = num_neighbor
+        # counts from the dedup sort. A host-resident table dedups every hop:
+        # each duplicate would be one more row through the host. The uniform
+        # samplers' no-dedup last hop is degree-tiered; PinSAGE's walks every
+        # hop at K = num_neighbor
         gcn = cfg.model == "gcn"
         walk = cfg.sample_type == SampleType.RANDOM_WALK
-        self.dedup_last_hop = gcn
+        self.dedup_last_hop = gcn or not self.feat_on_device
         self.with_out_degrees = gcn
         fan_sampling = ([cfg.num_neighbor] * cfg.num_layer_rw if walk
                         else list(reversed(cfg.fanout)))
@@ -107,20 +133,14 @@ class OneChipEngine:
                               tier_stats=tier_stats)
         log.info("sample plan: %s", self.plan)
 
-        # --- feature table in device memory --------------------------------
-        feat_dtype = self.compute_dtype or torch.float32
-        feat = np.asarray(ds.feat)
-        feat_bytes = feat.shape[0] * feat.shape[1] * feat_dtype.itemsize
-        if feat_budget is None and dev.type == "cuda":
-            total = torch.cuda.get_device_properties(dev).total_memory
-            feat_budget = int(total * FEAT_MEMORY_SHARE)
-        if feat_budget is not None and feat_bytes > feat_budget:
-            raise ValueError(
-                f"feature table of {feat_bytes} bytes exceeds the device "
-                f"budget of {feat_budget} bytes; host-resident features and "
-                "the caches are not ported yet (ROADMAP.md A13)"
-            )
-        self.feat_dev = torch.as_tensor(feat, device=dev).to(feat_dtype)
+        self.feat_dev = self.host_feat = None
+        if self.feat_on_device:
+            self.feat_dev = torch.as_tensor(np.asarray(ds.feat),
+                                            device=dev).to(feat_dtype)
+        else:
+            log.info("feature table of %d bytes stays in host memory "
+                     "(device budget %d bytes)", feat_bytes, feat_budget)
+            self.host_feat = HostFeatures(ds.feat, dev, mod=ds.feat_mod)
         self.label_dev = torch.as_tensor(
             np.asarray(ds.label).astype(np.int64), device=dev)
         self.feat_gather = mock_gather if ds.empty_feat else device_gather
@@ -134,6 +154,41 @@ class OneChipEngine:
         self.sample_gen = torch.Generator(dev).manual_seed(cfg.seed)
         self.dropout_gen = torch.Generator(dev).manual_seed(cfg.seed + 0x5eed)
         self.last_overflowed = False
+        # (miss rows, feature rows) of the last host-resident step
+        self.last_rows = (0, 0)
+
+        # --- feature cache, only for a host-resident table -----------------
+        self.cache = self.dyn_cache = None
+        if cfg.use_cache and not self.feat_on_device:
+            self._build_cache(presample_rand)
+
+    def _build_cache(self, presample_rand: Optional[RandFn]) -> None:
+        """The reference's order (engine.py:186-234): the dynamic cache, or
+        a ranking (presample, presample-static, or a static policy) and the
+        static cache over its top rows."""
+        cfg, ds = self.cfg, self.ds
+        if cfg.cache_policy == CachePolicy.DYNAMIC_CACHE:
+            # arch4: the cache is the previous batch
+            self.dyn_cache = DynamicFeatureCache(self.host_feat,
+                                                 self.plan.final_input_cap)
+            return
+        sample_fn = lambda seeds, n, rand: self.sample(seeds, n, rand, True)
+        if cfg.cache_policy == CachePolicy.PRESAMPLE_STATIC:
+            ranking = presample_static_ranking(
+                sample_fn, self.shuffler, np.asarray(ds.indptr),
+                np.asarray(ds.indices), ds.num_node, self.device,
+                presample_epoch=cfg.presample_epoch, seed=cfg.seed,
+                rand=presample_rand)
+        elif cfg.cache_policy == CachePolicy.PRESAMPLE:
+            ranking = presample_ranking(
+                sample_fn, self.shuffler, ds.num_node, self.device,
+                presample_epoch=cfg.presample_epoch, seed=cfg.seed,
+                rand=presample_rand)
+        else:
+            ranking = build_ranking(ds, cfg.cache_policy, cfg.seed)
+        self.cache = FeatureCache(self.host_feat, ranking,
+                                  cfg.cache_percentage, ds.num_node,
+                                  dtype=self.compute_dtype)
 
     # ------------------------------------------------------------------
     def uniform_shapes(self, dedup_last_hop: bool) -> list:
@@ -165,6 +220,47 @@ class OneChipEngine:
             with_out_degrees=self.with_out_degrees, rand=rand,
         )
 
+    # -- features ----------------------------------------------------------
+    def _host_rows(self, input_nodes: torch.Tensor,
+                   num_input: torch.Tensor) -> torch.Tensor:
+        """Every row of ``input_nodes`` from the host table, float32, zero
+        rows for padding: the reference's uncached host path."""
+        host = self.host_feat
+        f = host.fetch(input_nodes, num_input.reshape(1).to(torch.int32))
+        rows, (n,), ready = host.load(f, torch.float32, compact=False)
+        host.ready(ready)
+        self.last_rows = (n, n)
+        return rows
+
+    def features(self, batch) -> torch.Tensor:
+        """The batch's input features on the device, by the engine's path.
+        On the host-resident path it sets ``last_rows`` to the step's
+        (miss rows, feature rows)."""
+        if self.feat_dev is not None:
+            return self.feat_gather(self.feat_dev, batch.input_nodes)
+        if self.dyn_cache is not None:
+            feats = self.dyn_cache.extract(batch.input_nodes)
+            miss, hit = self.dyn_cache.last_num_miss, self.dyn_cache.last_num_hit
+        elif self.cache is not None:
+            index = self.cache.get_miss_cache_index(batch.input_nodes)
+            rows, miss, hit = self.cache.upload_miss(index)
+            feats = self.cache.combine(index, rows, miss)
+        else:
+            return self._host_rows(batch.input_nodes, batch.num_input)
+        self.last_rows = (miss, miss + hit)
+        return feats
+
+    def train_on(self, batch, feats: torch.Tensor):
+        """One optimizer step on a sampled batch and its input features.
+        Returns device scalars ``(loss, acc, sampled_edges, overflowed)``."""
+        labels = label_gather(self.label_dev, batch.output_nodes)
+        loss, acc = train_step(
+            self.model, self.optimizer, batch, feats, labels, self.dst_caps,
+            self.cfg.batch_size, generator=self.dropout_gen,
+        )
+        n_edges = sum(b.mask.sum() for b in batch.blocks)
+        return loss, acc, n_edges, batch.overflowed
+
     def step(self, seeds: torch.Tensor, num_seeds,
              rand: Optional[Sequence[torch.Tensor]] = None):
         """One training step on a ``[seed_cap]`` int32 seed tensor.
@@ -174,18 +270,10 @@ class OneChipEngine:
         generator draws them. Returns device scalars ``(loss, acc,
         sampled_edges, overflowed)``.
         """
-        cfg = self.cfg
         batch = self.sample(seeds, num_seeds,
                             self.sample_gen if rand is None else rand,
                             self.dedup_last_hop)
-        feats = self.feat_gather(self.feat_dev, batch.input_nodes)
-        labels = label_gather(self.label_dev, batch.output_nodes)
-        loss, acc = train_step(
-            self.model, self.optimizer, batch, feats, labels, self.dst_caps,
-            cfg.batch_size, generator=self.dropout_gen,
-        )
-        n_edges = sum(b.mask.sum() for b in batch.blocks)
-        return loss, acc, n_edges, batch.overflowed
+        return self.train_on(batch, self.features(batch))
 
     def _surface_overflow(self, epoch: int, overflowed: bool) -> None:
         """A sampler cap overflow clips sampled nodes/edges: warn, or raise
@@ -203,42 +291,109 @@ class OneChipEngine:
             raise RuntimeError(msg)
         log.warning(msg)
 
-    def _dispatch_epoch(self, epoch: int):
-        """Every step of one epoch, with no host sync: the ``[num_step, 4]``
-        device stats (loss, acc, edges, overflow) and the host weights of
-        the steps (1 where the batch is not empty)."""
+    # -- epochs ------------------------------------------------------------
+    @property
+    def pipelined(self) -> bool:
+        """Whether epochs run the cache prefetch pipeline."""
+        return self.cfg.pipeline and (self.cache is not None
+                                      or self.dyn_cache is not None)
+
+    def _epoch_inputs(self, epoch: int):
         seeds_all, nums_all = self.shuffler.epoch_arrays(epoch)
-        seeds_dev = torch.as_tensor(seeds_all, device=self.device)
-        nums_dev = torch.as_tensor(nums_all, device=self.device)
-        stats = []
+        return (torch.as_tensor(seeds_all, device=self.device),
+                torch.as_tensor(nums_all, device=self.device),
+                torch.as_tensor(nums_all > 0, dtype=torch.float32))
+
+    @staticmethod
+    def _stats(loss, acc, n_edges, ovf) -> torch.Tensor:
+        return torch.stack([loss.float(), acc.float(), n_edges.float(),
+                            ovf.float()])
+
+    def _dispatch_epoch(self, epoch: int):
+        """Every step of one epoch: the ``[num_step, 4]`` device stats
+        (loss, acc, edges, overflow), the host weights of the steps (1 where
+        the batch is not empty) and, on the host-resident path, the epoch's
+        (miss rows, feature rows). The device-resident path never syncs."""
+        if self.pipelined:
+            return self._dispatch_epoch_pipelined(epoch)
+        seeds_dev, nums_dev, weights = self._epoch_inputs(epoch)
+        stats, rows = [], [0, 0]
         for i in range(self.shuffler.num_step):
-            loss, acc, n_edges, ovf = self.step(seeds_dev[i], nums_dev[i])
-            stats.append(torch.stack([loss.float(), acc.float(),
-                                      n_edges.float(), ovf.float()]))
-        return torch.stack(stats), torch.as_tensor(nums_all > 0,
-                                                   dtype=torch.float32)
+            stats.append(self._stats(*self.step(seeds_dev[i], nums_dev[i])))
+            rows = [a + b for a, b in zip(rows, self.last_rows)]
+        return (torch.stack(stats), weights,
+                None if self.feat_on_device else rows)
+
+    def _dispatch_epoch_pipelined(self, epoch: int):
+        """The cache epoch as a two-stage pipeline (the reference's
+        ``_run_epoch_split_pipelined`` and ``_run_epoch_dyncache_pipelined``,
+        after the source system's SampleSubLoop || DataCopySubLoop): on this
+        thread, sample batch k+1, split it against the cache and queue the
+        copy of its miss ids to the host; on a worker thread, wait for those
+        ids, gather the rows on the host and upload them on the copy stream;
+        meanwhile this thread combines and trains batch k, its stream waiting
+        for batch k's upload. The same batches, draws and order as the
+        synchronous epoch, so the same numbers."""
+        seeds_dev, nums_dev, weights = self._epoch_inputs(epoch)
+        host = self.host_feat
+        cache = self.cache if self.cache is not None else self.dyn_cache
+        split = (self.cache.get_miss_cache_index if self.cache is not None
+                 else self.dyn_cache.split_and_advance)
+        stats, rows = [], [0, 0]
+        with ThreadPoolExecutor(max_workers=1) as worker:
+            def produce(i):
+                batch = self.sample(seeds_dev[i], nums_dev[i], self.sample_gen,
+                                    True)
+                index = split(batch.input_nodes)
+                f = host.fetch(index.miss_ids,
+                               torch.stack([index.num_miss, index.num_hit]))
+                return batch, index, worker.submit(host.load, f, cache.dtype)
+
+            pending = produce(0)
+            for i in range(self.shuffler.num_step):
+                batch, index, job = pending
+                if i + 1 < self.shuffler.num_step:
+                    pending = produce(i + 1)
+                miss_rows, (miss, hit), ready = job.result()
+                host.ready(ready)
+                feats = cache.combine(index, miss_rows, miss)
+                stats.append(self._stats(*self.train_on(batch, feats)))
+                rows = [rows[0] + miss, rows[1] + miss + hit]
+        return torch.stack(stats), weights, rows
 
     def run_epochs(self, start_epoch: int, n: int) -> List[dict]:
         """``n`` epochs back to back with one host sync at the end; the same
         math and dicts as ``n`` :meth:`run_epoch` calls. Each epoch reports
-        ``epoch_time`` as the total over ``n``, and surfaces its overflow."""
+        ``epoch_time`` as the total over ``n``, and surfaces its overflow.
+        With a host-resident table each epoch also reports ``miss_bytes``
+        and ``feature_bytes`` (the reference's profiler counters: rows from
+        the host, and all input rows, times the staging bytes of a row; the
+        hit rate is 1 - miss/feature)."""
         t0 = time.perf_counter()
         epochs = range(start_epoch, start_epoch + n)
         dispatched = [self._dispatch_epoch(e) for e in epochs]
-        stats = torch.stack([s for s, _ in dispatched]).cpu()   # the one sync
+        stats = torch.stack([s for s, _, _ in dispatched]).cpu()   # the one sync
         epoch_time = (time.perf_counter() - t0) / n
+        # the reference's counters: rows times the bytes of a staged row,
+        # the static cache's dtype, else float32
+        row_bytes = self.ds.feat_dim * (
+            4 if self.cache is None else self.cache.dtype.itemsize)
         out = []
-        for e, s, (_, w) in zip(epochs, stats, dispatched):
+        for e, s, (_, w, rows) in zip(epochs, stats, dispatched):
             wsum = max(float(w.sum()), 1.0)
             self._surface_overflow(e, bool(s[:, 3].any()))
-            out.append({
+            r = {
                 "epoch": e,
                 "epoch_time": epoch_time,
                 "loss": float((s[:, 0] * w).sum() / wsum),
                 "acc": float((s[:, 1] * w).sum() / wsum),
                 "num_step": self.shuffler.num_step,
                 "sampled_edges": int(s[:, 2].double().sum()),
-            })
+            }
+            if rows is not None:
+                r["miss_bytes"] = rows[0] * row_bytes
+                r["feature_bytes"] = rows[1] * row_bytes
+            out.append(r)
         return out
 
     def run_epoch(self, epoch: int) -> dict:
@@ -254,7 +409,9 @@ class OneChipEngine:
         evaluation does for every model, from a generator of their own
         (seed ``cfg.seed + EVAL_SEED_OFFSET``), so evaluating leaves the
         training generators where they were. ``rand(step)`` injects the
-        uniforms of a step instead (:meth:`uniform_shapes` with dedup)."""
+        uniforms of a step instead (:meth:`uniform_shapes` with dedup).
+        A host-resident table is read on the host without the cache, as in
+        the reference, so evaluating leaves a dynamic cache as it was."""
         cfg = self.cfg
         nodes = np.asarray(node_set if node_set is not None
                            else self.ds.test_set)
@@ -266,7 +423,10 @@ class OneChipEngine:
             batch = self.sample(torch.as_tensor(seeds, device=self.device), n,
                                 gen if rand is None else rand(step),
                                 dedup_last_hop=True)
-            feats = self.feat_gather(self.feat_dev, batch.input_nodes)
+            if self.feat_dev is not None:
+                feats = self.feat_gather(self.feat_dev, batch.input_nodes)
+            else:
+                feats = self._host_rows(batch.input_nodes, batch.num_input)
             labels = label_gather(self.label_dev, batch.output_nodes)
             accs.append(eval_step(self.model, batch, feats, labels,
                                   self.dst_caps, cfg.batch_size))

@@ -13,7 +13,7 @@ import dataclasses
 import itertools
 from typing import Optional, Sequence, Tuple
 
-from fgnn_tpu import constants
+from .. import constants
 
 
 def _round_up(x: int, m: int = 128) -> int:
@@ -44,6 +44,11 @@ class SamplePlan:
     @property
     def num_layer(self) -> int:
         return len(self.fanouts)
+
+    @property
+    def final_input_cap(self) -> int:
+        """Cap on a dedup batch's ``input_nodes`` (the feature-gather size)."""
+        return self.num_unique_cap[-1]
 
 
 def make_plan(

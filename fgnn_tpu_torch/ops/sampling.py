@@ -21,8 +21,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from fgnn_tpu.config import SampleType
-
+from ..config import SampleType
 from .hashtable import unique_and_remap
 from .padding import SamplePlan
 

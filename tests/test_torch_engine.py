@@ -20,7 +20,7 @@ from fgnn_tpu.data import make_synthetic_dataset
 from fgnn_tpu.engine import OneChipEngine as JEngine
 from fgnn_tpu_torch.engine import OneChipEngine
 from fgnn_tpu_torch.models.convert import params_from_flax
-from torch_parity import jax_uniforms, jax_walk_uniforms
+from torch_parity import jax_uniforms, jax_walk_uniforms, port_cfg, port_ds
 
 torch.set_num_threads(2)
 
@@ -36,6 +36,11 @@ def ds():
                                   num_class=8, train_frac=0.5, seed=42)
 
 
+def port_engine(cfg, ds, **kw):
+    """The port's engine on the CPU for a reference config and dataset."""
+    return OneChipEngine(port_cfg(cfg), port_ds(ds), "cpu", **kw)
+
+
 def jax_draws(cfg):
     """The reference's per-hop uniforms for the engine's sampler."""
     if cfg.sample_type == SampleType.RANDOM_WALK:
@@ -48,7 +53,7 @@ def engines(ds, cfg):
     the same plan and the reference's last-hop rule: only GCN dedups its
     last hop; only the uniform samplers' no-dedup last hop is tiered."""
     jeng = JEngine(cfg, ds)
-    teng = OneChipEngine(cfg, ds, "cpu")
+    teng = port_engine(cfg, ds)
     assert dataclasses.asdict(teng.plan) == dataclasses.asdict(jeng.plan)
     gcn = cfg.model == "gcn"
     walk = cfg.sample_type == SampleType.RANDOM_WALK
@@ -115,8 +120,8 @@ def test_run_epochs_equals_run_epoch_calls(ds):
     the same state (dropout on): identical losses, accuracies, edges and
     parameters; only epoch_time differs."""
     cfg = GCN_CFG.replace(dropout=0.5)
-    a = OneChipEngine(cfg, ds, "cpu")
-    b = OneChipEngine(cfg, ds, "cpu")
+    a = port_engine(cfg, ds)
+    b = port_engine(cfg, ds)
     ra = a.run_epochs(0, 2)
     rb = [b.run_epoch(0), b.run_epoch(1)]
     for x, y in zip(ra, rb):
@@ -129,7 +134,7 @@ def test_run_epochs_equals_run_epoch_calls(ds):
 
 
 def test_run_epoch_reports_the_reference_keys(ds):
-    eng = OneChipEngine(CFG.replace(dropout=0.5), ds, "cpu")
+    eng = port_engine(CFG.replace(dropout=0.5), ds)
     r0, r1 = eng.run_epoch(0), eng.run_epoch(1)
     assert set(r0) == {"epoch", "epoch_time", "loss", "acc", "num_step",
                        "sampled_edges"}
@@ -139,16 +144,26 @@ def test_run_epoch_reports_the_reference_keys(ds):
 
 
 def test_feature_table_over_budget_raises(ds):
-    with pytest.raises(ValueError, match="budget"):
-        OneChipEngine(CFG, ds, "cpu", feat_budget=1024)
+    """A table over the device budget no longer raises: it stays in host
+    memory (the reference's ``feat_on_device`` rule), every hop dedups, and
+    every input row of an uncached epoch comes from the host."""
+    eng = port_engine(CFG, ds, feat_budget=1024)
+    assert not eng.feat_on_device and eng.feat_dev is None
+    assert eng.dedup_last_hop and eng.cache is None and eng.dyn_cache is None
+    r = eng.run_epoch(0)
+    assert np.isfinite(r["loss"]) and r["sampled_edges"] > 0
+    assert r["miss_bytes"] == r["feature_bytes"] > 0
+    # on the device (no budget on the CPU) the cache setting is ignored
+    eng = port_engine(CFG.replace(cache_percentage=0.1), ds)
+    assert eng.feat_on_device and eng.cache is None
 
 
 @pytest.mark.parametrize("kw", [{"sample_type": SampleType.KHOP1},
-                                {"cache_percentage": 0.1},
+                                {"sample_type": SampleType.WEIGHTED_KHOP_PREFIX},
                                 {"sample_type": SampleType.WEIGHTED_KHOP}])
 def test_unported_configurations_raise(ds, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OneChipEngine(CFG.replace(**kw), ds, "cpu")
+        port_engine(CFG.replace(**kw), ds)
 
 
 def test_empty_feat_dataset_gathers_modulo_the_table():
@@ -158,5 +173,5 @@ def test_empty_feat_dataset_gathers_modulo_the_table():
                                 num_class=4, train_frac=0.2, seed=1,
                                 empty_feat_rows=100)
     assert ds.empty_feat
-    r = OneChipEngine(CFG, ds, "cpu").run_epoch(0)
+    r = port_engine(CFG, ds).run_epoch(0)
     assert np.isfinite(r["loss"]) and r["sampled_edges"] > 0

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from fgnn_tpu.config import SampleType
+from fgnn_tpu_torch.config import SampleType as TSampleType
 from fgnn_tpu.data import make_synthetic_dataset
 from fgnn_tpu.models import aggregate as jagg
 from fgnn_tpu.models.gnn import GCN as JGCN
@@ -37,6 +38,7 @@ from torch_parity import (assert_batches_equal, batch_to_torch, block_to_torch,
 
 torch.set_num_threads(2)
 KHOP2 = SampleType.KHOP2
+TKHOP2 = TSampleType.KHOP2   # the port's own enum
 IN, HID, CLS = 16, 32, 5
 GCN_FANOUT = (5, 10, 15)      # config order, as exp/table1/run.py
 
@@ -106,9 +108,9 @@ def test_src_out_deg_matches_in_every_branch(ds, graphs, mode):
     key = jax.random.key(21)
     jbatch = jax_sample(jg, plan, seeds, dedup, key)
     tbatch = tsamp.multi_layer_sample(
-        tg, torch.from_numpy(seeds), plan.batch_size, plan, KHOP2,
+        tg, torch.from_numpy(seeds), plan.batch_size, plan, TKHOP2,
         dedup_last_hop=dedup, with_out_degrees=True,
-        rand=jax_uniforms(key, tsamp.uniform_shapes(plan, KHOP2, dedup)))
+        rand=jax_uniforms(key, tsamp.uniform_shapes(plan, TKHOP2, dedup)))
     assert all(b.src_out_deg is not None for b in tbatch.blocks)
     assert_batches_equal(jbatch, tbatch)
 

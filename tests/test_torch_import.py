@@ -1,5 +1,7 @@
-"""fgnn_tpu_torch must never import jax, flax or optax: it runs on machines
-that have none of them."""
+"""fgnn_tpu_torch must never import jax, flax or optax, nor the JAX package
+fgnn_tpu itself (not even its JAX-free modules): it runs on machines that
+have none of them and keeps its own copies of what it needs. The same holds
+for chip_smoke.py, the port's check on the card."""
 import ast
 import os
 import subprocess
@@ -11,11 +13,21 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "fgnn_tpu_torch")
-FORBIDDEN = ("jax", "flax", "optax")
+SMOKE = os.path.join(REPO, "chip_smoke.py")
+FORBIDDEN = ("jax", "flax", "optax", "fgnn_tpu")
+
+
+def _run(code):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    return r.stdout
 
 
 def test_importing_every_module_loads_no_jax():
-    code = (
+    out = _run(
         "import importlib, pkgutil, sys\n"
         "import fgnn_tpu_torch\n"
         "for m in pkgutil.walk_packages(fgnn_tpu_torch.__path__, "
@@ -26,29 +38,63 @@ def test_importing_every_module_loads_no_jax():
         "print('imported', len([m for m in sys.modules "
         "if m.startswith('fgnn_tpu_torch')]))\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
-    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, cwd=REPO, env=env, timeout=300)
-    assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    assert int(out.split()[-1]) >= 25
+
+
+def test_chip_smoke_imports_no_jax_package():
+    """chip_smoke.py's module and every port module it names load neither
+    jax nor fgnn_tpu (its phases import inside functions: collected here
+    from its source)."""
+    with open(SMOKE) as fh:
+        tree = ast.parse(fh.read(), SMOKE)
+    mods = sorted({n.module for n in ast.walk(tree)
+                   if isinstance(n, ast.ImportFrom) and n.module
+                   and n.module.startswith("fgnn_tpu_torch")})
+    assert "fgnn_tpu_torch.engine" in mods
+    out = _run(
+        "import importlib, runpy, sys\n"
+        f"runpy.run_path({SMOKE!r}, run_name='chip_smoke_import_check')\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    assert out.split()[0] == "ok"
+
+
+def _forbidden_imports(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names = [node.module]
+        found += [(path, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    return found
+
+
+def _port_sources():
+    for root, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
 
 
 def test_no_source_file_imports_jax():
     found = []
-    for root, _, files in os.walk(PKG):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(root, f)
-            with open(path) as fh:
-                tree = ast.parse(fh.read(), path)
-            for node in ast.walk(tree):
-                names = []
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    names = [node.module]
-                found += [(path, n) for n in names
-                          if n.split(".")[0] in FORBIDDEN]
+    for path in _port_sources():
+        found += _forbidden_imports(path)
     assert not found, found
+
+
+def test_chip_smoke_source_imports_no_jax_package(tmp_path):
+    """No import statement of chip_smoke.py, at any depth, names a
+    forbidden root module; the check itself finds one where it is."""
+    assert not _forbidden_imports(SMOKE)
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    from fgnn_tpu.config import RunConfig\n")
+    assert _forbidden_imports(str(probe)) == [(str(probe), "fgnn_tpu.config")]

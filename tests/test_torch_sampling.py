@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from fgnn_tpu.config import SampleType
+from fgnn_tpu_torch.config import SampleType as TSampleType
 from fgnn_tpu.data import make_synthetic_dataset
 from fgnn_tpu.ops import hashtable as jhash
 from fgnn_tpu.ops import sampling as jsamp
@@ -23,6 +24,7 @@ from torch_parity import (assert_batches_equal, assert_blocks_equal,
 
 torch.set_num_threads(2)
 KHOP2 = SampleType.KHOP2
+TKHOP2 = TSampleType.KHOP2   # the port's own enum
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +126,7 @@ def test_sample_layer_matches(ds, graphs, fanout):
     key = jax.random.key(fanout)
     jn, jv, _ = jsamp.sample_layer(key, jg, jnp.asarray(inputs), fanout, KHOP2)
     u = to_torch(jax.random.uniform(key, (300, fanout)))
-    tn, tv = tsamp.sample_layer(tg, torch.from_numpy(inputs), fanout, KHOP2, u)
+    tn, tv = tsamp.sample_layer(tg, torch.from_numpy(inputs), fanout, TKHOP2, u)
     np.testing.assert_array_equal(np.asarray(jn), tn.numpy())
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
 
@@ -168,9 +170,9 @@ def test_multi_layer_sample_matches(ds, graphs, mode):
     jbatch = jax.jit(lambda k: jsamp.multi_layer_sample(
         k, jg, jnp.asarray(seeds), jnp.int32(plan.batch_size), plan, KHOP2,
         dedup_last_hop=dedup))(key)
-    rand = jax_uniforms(key, tsamp.uniform_shapes(plan, KHOP2, dedup))
+    rand = jax_uniforms(key, tsamp.uniform_shapes(plan, TKHOP2, dedup))
     tbatch = tsamp.multi_layer_sample(
-        tg, torch.from_numpy(seeds), plan.batch_size, plan, KHOP2,
+        tg, torch.from_numpy(seeds), plan.batch_size, plan, TKHOP2,
         dedup_last_hop=dedup, rand=rand)
     assert_batches_equal(jbatch, tbatch)
     assert (tbatch.blocks[0].tier_split is not None) == (mode == "tiered")
@@ -180,7 +182,7 @@ def test_multi_layer_sample_matches(ds, graphs, mode):
 def test_injected_uniforms_are_checked(ds, graphs):
     _, tg = graphs
     with pytest.raises(ValueError, match="uniforms"):
-        tsamp.sample_layer(tg, torch.zeros(4, dtype=torch.int32), 3, KHOP2,
+        tsamp.sample_layer(tg, torch.zeros(4, dtype=torch.int32), 3, TKHOP2,
                            torch.zeros(4, 2))
 
 
@@ -194,7 +196,7 @@ def test_tiered_sampling_distribution_with_generator(ds, graphs):
     plan = plan_for(ds)
     batch = tsamp.multi_layer_sample(
         tg, torch.from_numpy(seeds_for(ds, plan)), plan.batch_size, plan,
-        KHOP2, dedup_last_hop=False, rand=torch.Generator().manual_seed(0))
+        TKHOP2, dedup_last_hop=False, rand=torch.Generator().manual_seed(0))
     assert not bool(batch.overflowed)
     blk = batch.blocks[0]
     assert blk.tier_split is not None
@@ -233,7 +235,7 @@ def test_khop2_uniformity_with_generator():
     g = tsamp.CSRGraph(indptr=torch.tensor([0, n_nbr, n_nbr]),
                        indices=torch.arange(n_nbr, dtype=torch.int32))
     nbrs, valid = tsamp.sample_layer(g, torch.zeros(trials, dtype=torch.int32),
-                                     fanout, KHOP2,
+                                     fanout, TKHOP2,
                                      torch.Generator().manual_seed(0))
     assert bool(valid.all())
     rows = nbrs.reshape(trials, fanout).numpy()

@@ -1,14 +1,37 @@
 """Helpers for the parity tests between fgnn_tpu (JAX) and fgnn_tpu_torch.
 
 Values cross between the frameworks as NumPy arrays. bf16 goes through
-float32, which holds every bf16 value exactly.
+float32, which holds every bf16 value exactly. Configurations and datasets
+cross through :func:`port_cfg` and :func:`port_ds`: the port has its own
+``RunConfig``, enums and ``Dataset``.
 """
+import dataclasses
+import enum
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from fgnn_tpu_torch.config import RunConfig as TRunConfig
+from fgnn_tpu_torch.data.schema import Dataset as TDataset
 from fgnn_tpu_torch.ops import sampling as tsampling
+
+
+def port_cfg(cfg):
+    """The port's RunConfig for a reference RunConfig, through
+    ``from_dict`` with the enums given by value."""
+    return TRunConfig.from_dict({
+        f.name: (v.value if isinstance(v, enum.Enum) else v)
+        for f in dataclasses.fields(cfg)
+        for v in [getattr(cfg, f.name)]})
+
+
+def port_ds(ds):
+    """The port's Dataset for a reference Dataset, field by field, over the
+    same arrays."""
+    return TDataset(**{f.name: getattr(ds, f.name)
+                       for f in dataclasses.fields(ds)})
 
 
 def to_torch(x):
