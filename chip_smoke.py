@@ -63,7 +63,32 @@ Phases, none of which catches a failure (any failure exits non-zero):
      path and of the dynamic cache; epoch times, miss bytes, peak memory,
      row-gather launches per step, the host gather's and the pinned
      upload's GB/s.
-The 1M-node graph is built once and shared by 5, 9, 11, 13 and 15. Prints
+ 16. small input, KHOP1 (GraphSAGE), WEIGHTED_KHOP (GraphSAGE),
+     WEIGHTED_KHOP_HASH_DEDUP (GraphSAGE) and WEIGHTED_KHOP_PREFIX (GCN
+     [5, 10, 15]): card against CPU as in 4, each step's sampled batch
+     equal exactly; then the direct-index dedup against the one-sort dedup
+     on the main path's two hops, equal, both timed with CUDA events;
+ 17. the weighted tables of the 1M-node graph (built once on the host,
+     timed); pick frequencies on the card of vertices of degree above 128
+     and of 26-128 (alias and prefix within TV_BOUND of the weights over 1M
+     draws, hash-dedup picks distinct and complete outside its stream
+     branch's shortfall rows); then at batch 8000, hidden 256, bf16:
+     GraphSAGE [25, 10] WEIGHTED_KHOP for two epochs through run_epochs,
+     evaluate() and a third epoch under torch.profiler, GCN [5, 10, 15]
+     WEIGHTED_KHOP_PREFIX, GraphSAGE WEIGHTED_KHOP_HASH_DEDUP and GraphSAGE
+     KHOP1 one epoch each; the first step's edges of the with-replacement
+     samplers equal to the host's count of fanout x [deg > 0] over each
+     hop's frontier; launches per step checked;
+ 18. small input, arch0 (HostSamplingEngine: the C++ host samplers, built
+     with g++ at first use): GraphSAGE KHOP2 and WEIGHTED_KHOP and
+     PinSAGE on the card against the CPU, the same host batches, losses
+     within 1e-4;
+ 19. arch0 at the bench configuration (GraphSAGE [25, 10], batch 8000,
+     hidden 256) on the 1M-node graph: two epochs, eight synced steps stage
+     by stage, a third epoch under torch.profiler; one epoch each at
+     PRESAMPLE 10% and of PinSAGE 3 x 5 (W=4, L=3).
+The 1M-node graph is built once and shared by 5, 9, 11, 13, 15, 16, 17 and
+19. Prints
 a JSON line of kernel results (each with its bound on this card and the
 time of the one PyTorch call that computes the same function), then as its
 last line ``{"ok": true, "device": {...}}``.
@@ -90,6 +115,11 @@ EXPECTED_EDGES = 22.5e6
 NUM_CLASS = 172
 # cache shares of phase 15's hit-rate runs
 CACHE_SHARES = (0.1, 0.2)
+# phase 17: the largest total variation allowed between a weighted
+# sampler's pick frequencies (1M draws of one vertex) and its normalised
+# weights; the sampling noise alone is about 0.4 sqrt(deg / 1M), under 0.01
+# up to degree 600
+TV_BOUND = 0.02
 # gather_rows launches in one GAT training step at [25, 10] with the tiered
 # no-dedup last hop (forward only; the backward is a torch scatter-add):
 GAT_LAUNCHES_PER_STEP = (
@@ -207,31 +237,74 @@ def kernel_phase(dev, card):
     return max_err, timing
 
 
-def small_engines(dev, model, **kw):
-    """The port's engine on the CPU and on the card, with the same
-    parameters, over a 2000-node graph."""
-    from fgnn_tpu_torch.config import RunConfig, SampleType
-    from fgnn_tpu_torch.data import make_synthetic_dataset
-    from fgnn_tpu_torch.engine import OneChipEngine
+def small_dataset():
+    """The 2000-node graph of the card-against-CPU phases, with the
+    weighted samplers' tables."""
+    from fgnn_tpu_torch.data import build_alias_tables, make_synthetic_dataset
 
     ds = make_synthetic_dataset(num_node=2000, avg_degree=8, feat_dim=32,
                                 num_class=8, train_frac=0.5, seed=42)
-    cfg = RunConfig(model=model, batch_size=128, num_hidden=32,
-                    sample_type=SampleType.KHOP2, dropout=0.0, lr=0.003,
-                    compute_dtype="float32").replace(**kw)
+    build_alias_tables(ds, seed=0)
+    return ds
+
+
+def small_config(model, **kw):
+    from fgnn_tpu_torch.config import RunConfig, SampleType
+
+    return RunConfig(model=model, batch_size=128, num_hidden=32,
+                     sample_type=SampleType.KHOP2, dropout=0.0, lr=0.003,
+                     compute_dtype="float32").replace(**kw)
+
+
+def small_engines(dev, model, **kw):
+    """The port's engine on the CPU and on the card, with the same
+    parameters, over a 2000-node graph."""
+    from fgnn_tpu_torch.config import SampleType
+    from fgnn_tpu_torch.engine import OneChipEngine
+
+    ds = small_dataset()
+    cfg = small_config(model, **kw)
     cpu = OneChipEngine(cfg, ds, "cpu")
     gpu = OneChipEngine(cfg, ds, dev)
     gpu.model.load_state_dict(cpu.model.state_dict())
-    # GraphSAGE and GAT run the tiered no-dedup last hop, GCN dedups every
-    # hop, PinSAGE's walks are untiered
-    tiered = model in ("graphsage", "gat")
+    # GraphSAGE and GAT run the tiered no-dedup last hop with the uniform
+    # samplers without replacement, GCN dedups every hop, PinSAGE's walks,
+    # KHOP1 and the weighted samplers are untiered
+    tiered = (model in ("graphsage", "gat")
+              and cfg.sample_type in (SampleType.KHOP0, SampleType.KHOP2))
     check((cpu.plan.tier_layout is not None) == tiered,
           f"{model}: tier layout {cpu.plan.tier_layout}")
     return cpu, gpu
 
 
-def small_input_phase(dev, model="graphsage", fanout=(10, 3), **kw):
-    """The port's step on the card agrees with the same step on the CPU."""
+def check_batches_equal(a, b, label):
+    """Two sampled batches (any devices) equal in every tensor and layout
+    field."""
+    import dataclasses
+
+    import torch
+
+    def same(x, y, what):
+        check((x is None) == (y is None), f"{label}: {what} present on one "
+              "side only")
+        if x is not None and isinstance(x, torch.Tensor):
+            check(torch.equal(x.cpu(), y.cpu()), f"{label}: {what} differ")
+        elif x is not None:
+            check(x == y, f"{label}: {what} {x} != {y}")
+
+    check(len(a.blocks) == len(b.blocks), f"{label}: block counts differ")
+    for i, (x, y) in enumerate(zip(a.blocks, b.blocks)):
+        for f in dataclasses.fields(x):
+            same(getattr(x, f.name), getattr(y, f.name), f"block {i} {f.name}")
+    for f in ("input_nodes", "num_input", "output_nodes", "num_output",
+              "overflowed"):
+        same(getattr(a, f), getattr(b, f), f)
+
+
+def small_input_phase(dev, model="graphsage", fanout=(10, 3), blocks=False,
+                      **kw):
+    """The port's step on the card agrees with the same step on the CPU;
+    with ``blocks``, each step's sampled batch too, exactly."""
     import torch
 
     cpu, gpu = small_engines(dev, model, fanout=fanout, **kw)
@@ -239,6 +312,13 @@ def small_input_phase(dev, model="graphsage", fanout=(10, 3), **kw):
     shapes = cpu.uniform_shapes(cpu.dedup_last_hop)
     for seeds, n, step in cpu.shuffler.batches(0):
         rand = [torch.rand(s, generator=gen) for s in shapes]
+        if blocks:
+            check_batches_equal(
+                cpu.sample(torch.as_tensor(seeds), n, rand,
+                           cpu.dedup_last_hop),
+                gpu.sample(torch.as_tensor(seeds, device=dev), n,
+                           [r.to(dev) for r in rand], gpu.dedup_last_hop),
+                f"{model} {cpu.cfg.sample_type.value} step {step}")
         lc, _, ec, oc = cpu.step(torch.as_tensor(seeds), n, rand)
         lg, _, eg, og = gpu.step(torch.as_tensor(seeds, device=dev), n,
                                  [r.to(dev) for r in rand])
@@ -952,6 +1032,399 @@ def cache_phase(dev, card, ds):
     return total
 
 
+# --- phases 16-19: KHOP1, the weighted samplers and arch0 -------------------
+
+def remap_phase(dev, card, ds):
+    """The direct-index dedup against the one-sort dedup on the main path's
+    two hops (GraphSAGE [25, 10], batch 8000: hop 0 dedups on the main
+    path, hop 1 on the host-resident path and GCN's): equal outputs, and
+    both timed with CUDA events."""
+    import torch
+    from fgnn_tpu_torch.config import SampleType
+    from fgnn_tpu_torch.ops.hashtable import (unique_and_remap,
+                                              unique_and_remap_direct)
+    from fgnn_tpu_torch.ops.sampling import sample_layer
+    from fgnn_tpu_torch.tools.gather_campaign import median_ms
+
+    eng = big_engine(dev, ds, model="graphsage", fanout=(25, 10),
+                     sample_type=SampleType.KHOP2)
+    plan, graph = eng.plan, eng.graph
+    seeds_all, nums_all = eng.shuffler.epoch_arrays(0)
+    cur = torch.as_tensor(seeds_all[0], device=dev)
+    num = torch.tensor(int(nums_all[0]), dtype=torch.int32, device=dev)
+    gen = torch.Generator(dev).manual_seed(11)
+    times = {}
+    for hop in range(plan.num_layer):
+        nbrs, _ = sample_layer(graph, cur, plan.fanouts[hop], SampleType.KHOP2,
+                               gen)
+        cap = plan.num_unique_cap[hop]
+        sort = unique_and_remap(cur, num, nbrs, cap)
+        direct = unique_and_remap_direct(cur, num, nbrs, cap, ds.num_node)
+        for name, x, y in zip(("unique", "num_unique", "locals", "overflow"),
+                              sort, direct):
+            check(torch.equal(x, y), f"hop {hop}: direct remap {name} != "
+                  "the one-sort dedup's")
+        s_ms, d_ms = median_ms([
+            lambda: unique_and_remap(cur, num, nbrs, cap),
+            lambda: unique_and_remap_direct(cur, num, nbrs, cap, ds.num_node)],
+            inner=2)
+        times[hop] = (s_ms, d_ms)
+        print(f"  hop {hop}: {cur.shape[0]} frontier slots, {nbrs.shape[0]} "
+              f"picks, cap {cap}, {int(sort[1])} unique: one-sort dedup "
+              f"{s_ms:.4f} ms, direct-index dedup {d_ms:.4f} ms over a "
+              f"{ds.num_node}-node table, outputs equal ({card})")
+        cur, num = sort[0], sort[1]
+    del eng
+    return times
+
+
+def other_samplers_small_phase(dev):
+    """Phase 16's card-against-CPU runs: each new sampler's blocks exact,
+    losses within 1e-4."""
+    from fgnn_tpu_torch.config import SampleType
+
+    for model, fanout, st in (
+            ("graphsage", (10, 3), SampleType.KHOP1),
+            ("graphsage", (10, 3), SampleType.WEIGHTED_KHOP),
+            ("graphsage", (10, 3), SampleType.WEIGHTED_KHOP_HASH_DEDUP),
+            ("gcn", (5, 10, 15), SampleType.WEIGHTED_KHOP_PREFIX)):
+        print(f"  {model} {list(fanout)} {st.value}:")
+        small_input_phase(dev, model=model, fanout=fanout, blocks=True,
+                          sample_type=st)
+
+
+def alias_tables(ds):
+    """The weighted samplers' tables of the 1M graph, built once."""
+    from fgnn_tpu_torch.data import build_alias_tables
+
+    t0 = time.perf_counter()
+    build_alias_tables(ds, seed=0)
+    print(f"  build_alias_tables: {ds.num_edge} edges in "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+
+
+def pick_frequency_phase(dev, card, ds, graph):
+    """Pick frequencies on the card for vertices of degree above 128 and
+    of degree 26-128: alias and prefix within TV_BOUND of the normalised
+    weights from ~1M draws; hash-dedup picks distinct, min(deg, fanout) of
+    them outside the stream branch's shortfall rows."""
+    import numpy as np
+    import torch
+    from fgnn_tpu_torch.config import SampleType
+    from fgnn_tpu_torch.ops import sampling
+
+    indptr = np.asarray(ds.indptr)
+    deg = np.diff(indptr)
+    rng = np.random.default_rng(4)
+    verts = np.concatenate([
+        rng.choice(np.nonzero(deg > 128)[0], 3, replace=False),
+        rng.choice(np.nonzero((deg >= 26) & (deg <= 128))[0], 3,
+                   replace=False)])
+    prefix = np.asarray(ds.prob_prefix_table, np.float64)
+    gen = torch.Generator(dev).manual_seed(5)
+    fanout, rows = 25, 40_000
+    worst = 0.0
+    for v in verts:
+        o, d = int(indptr[v]), int(deg[v])
+        w = np.concatenate([prefix[o:o + 1], np.diff(prefix[o:o + d])])
+        # by neighbour id (the synthetic graph may repeat an id in a list)
+        ids = np.asarray(ds.indices[o:o + d])
+        p = np.bincount(ids, weights=w / w.sum(), minlength=ds.num_node)
+        inputs = torch.full((rows,), int(v), dtype=torch.int32, device=dev)
+        for st in (SampleType.WEIGHTED_KHOP, SampleType.WEIGHTED_KHOP_PREFIX):
+            nbrs, valid = sampling.sample_layer(graph, inputs, fanout, st, gen)
+            check(bool(valid.all()), f"{st.value}: a pick of vertex {v} is "
+                  "invalid")
+            emp = np.bincount(nbrs.cpu().numpy(), minlength=ds.num_node)
+            tv = 0.5 * np.abs(emp / emp.sum() - p).sum()
+            worst = max(worst, tv)
+            print(f"  vertex {v} (deg {d}) {st.value}: {rows * fanout} "
+                  f"draws, total variation from the weights {tv:.5f}")
+            check(tv < TV_BOUND, f"{st.value} vertex {v}: TV {tv} >= "
+                  f"{TV_BOUND}")
+        # hash-dedup on CSR slots (the sampler's own unit)
+        t = torch.tensor([o], device=dev)
+        dd = torch.tensor([d], dtype=torch.int32, device=dev)
+        width = sampling.draw_width(SampleType.WEIGHTED_KHOP_HASH_DEDUP, fanout)
+        u = torch.rand((4000, width), generator=gen, device=dev)
+        picks, ok = sampling._weighted_gumbel_dedup(
+            u, dd.expand(4000), t.expand(4000), graph, fanout)
+        picks, ok = picks.cpu().numpy(), ok.cpu().numpy()
+        counts = ok.sum(1)
+        for row, m in zip(picks, ok):
+            check(len(set(row[m].tolist())) == int(m.sum()),
+                  f"hash-dedup vertex {v}: a repeated pick")
+        short = int((counts < min(d, fanout)).sum())
+        if d <= sampling.GUMBEL_MAX_DEG:
+            check(short == 0, f"hash-dedup vertex {v} (Gumbel branch): "
+                  f"{short} rows short of {min(d, fanout)} picks")
+        print(f"  vertex {v} (deg {d}) hash-dedup: 4000 rows of distinct "
+              f"picks, {short} short of {min(d, fanout)} (stream branch "
+              f"shortfall rows: {short / 4000:.2%})")
+    print(f"  worst total variation {worst:.5f} (bound {TV_BOUND}) ({card})")
+
+
+def with_replacement_edges(eng, batch):
+    """The independent count of a with-replacement sampler's edges: per
+    hop, fanout times the frontier's valid vertices of degree > 0, the
+    frontier read from the unique list's prefix."""
+    import numpy as np
+
+    indptr = np.asarray(eng.ds.indptr)
+    inputs = batch.input_nodes.cpu().numpy()
+    want = []
+    for hop in range(eng.plan.num_layer):
+        front = inputs[:eng.plan.num_input_cap[hop]]
+        if hop == 0:
+            front = front[:int(batch.num_output)]
+        front = front[front >= 0]
+        want.append(eng.plan.fanouts[hop]
+                    * int((indptr[front + 1] - indptr[front] > 0).sum()))
+    return want
+
+
+def other_sampler_runs(dev, card, ds):
+    """Phase 17's runs at batch 8000, hidden 256, bf16. Returns the row
+    gather's launches over them."""
+    import torch
+    from fgnn_tpu_torch.config import SampleType
+    from fgnn_tpu_torch.ops import cuda_lib
+
+    total = 0
+    for label, kw, n_epochs, per_step in (
+            ("GraphSAGE [25, 10] WEIGHTED_KHOP",
+             dict(model="graphsage", fanout=(25, 10),
+                  sample_type=SampleType.WEIGHTED_KHOP), 2, 2),
+            ("GCN [5, 10, 15] WEIGHTED_KHOP_PREFIX",
+             dict(model="gcn", fanout=(5, 10, 15),
+                  sample_type=SampleType.WEIGHTED_KHOP_PREFIX), 1, 4),
+            ("GraphSAGE [25, 10] WEIGHTED_KHOP_HASH_DEDUP",
+             dict(model="graphsage", fanout=(25, 10),
+                  sample_type=SampleType.WEIGHTED_KHOP_HASH_DEDUP), 1, 2),
+            ("GraphSAGE [25, 10] KHOP1",
+             dict(model="graphsage", fanout=(25, 10),
+                  sample_type=SampleType.KHOP1), 1, 2)):
+        print(f"  {label}:")
+        eng = big_engine(dev, ds, **kw)
+        check(eng.plan.tier_layout is None, f"{label}: a tier layout")
+        seeds_all, nums_all = eng.shuffler.epoch_arrays(0)
+        batch = eng.sample(torch.as_tensor(seeds_all[0], device=dev),
+                           int(nums_all[0]), torch.Generator(dev).manual_seed(1),
+                           eng.dedup_last_hop)
+        per_hop = [int(b.mask.sum()) for b in reversed(batch.blocks)]
+        check(not bool(batch.overflowed), f"{label}: first batch overflowed")
+        if eng.cfg.sample_type != SampleType.WEIGHTED_KHOP_HASH_DEDUP:
+            want = with_replacement_edges(eng, batch)
+            print(f"  first step sampled edges per hop: card {per_hop}, "
+                  f"host count of fanout x [deg > 0] {want}")
+            check(per_hop == want, f"{label}: edges {per_hop} != {want}")
+        else:
+            print(f"  first step sampled edges per hop: card {per_hop}")
+        del batch
+        if n_epochs == 2:
+            results, launches = train_phase(dev, card, ds, eng, per_step)
+            wall, busy, top = device_busy(dev, lambda: eng.run_epoch(2))
+            print(f"  epoch 2 under torch.profiler: wall {wall:.4f} s, card "
+                  f"busy {busy:.4f} s ({busy / wall:.1%}); top device time: "
+                  + ", ".join(f"{n[:40]} {us / 1e3:.1f} ms" for n, us in top)
+                  + f" ({card})")
+        else:
+            torch.cuda.reset_peak_memory_stats(dev)
+            cuda_lib.reset_launches()
+            (r,) = eng.run_epochs(0, 1)
+            launches = cuda_lib.launches.get("gather_rows", 0)
+            peak = torch.cuda.max_memory_allocated(dev)
+            print(f"  epoch 0: loss {r['loss']:.4f} acc {r['acc']:.4f} "
+                  f"sampled_edges {r['sampled_edges']} epoch_time "
+                  f"{r['epoch_time']:.4f} s, mean step "
+                  f"{r['epoch_time'] / r['num_step'] * 1e3:.2f} ms over "
+                  f"{r['num_step']} steps; gather_rows launches {launches} "
+                  f"({launches / r['num_step']:g} a step); peak memory {peak} "
+                  f"B ({card})")
+            check(math.isfinite(r["loss"]), f"{label}: loss {r['loss']}")
+            check(not eng.last_overflowed, f"{label}: the epoch overflowed")
+            check(launches == per_step * r["num_step"],
+                  f"{label}: {launches} launches for {r['num_step']} steps")
+        total += launches
+        del eng
+    return total
+
+
+def other_samplers_phase(dev, card, ds):
+    """Phase 17 (see the module docstring)."""
+    from fgnn_tpu_torch.config import SampleType
+
+    alias_tables(ds)
+    eng = big_engine(dev, ds, model="graphsage", fanout=(25, 10),
+                     sample_type=SampleType.WEIGHTED_KHOP_HASH_DEDUP)
+    pick_frequency_phase(dev, card, ds, eng.graph)
+    del eng
+    return other_sampler_runs(dev, card, ds)
+
+
+def arch0_small_phase(dev):
+    """arch0 on a small input: HostSamplingEngine on the card and on the
+    CPU from the same parameters draws the same host batches, and the
+    losses agree within 1e-4."""
+    from fgnn_tpu_torch.config import SampleType
+    from fgnn_tpu_torch.host_engine import HostSamplingEngine
+
+    ds = small_dataset()
+    for model, kw in (
+            ("graphsage", dict(fanout=(10, 3), sample_type=SampleType.KHOP2)),
+            ("graphsage", dict(fanout=(10, 3),
+                               sample_type=SampleType.WEIGHTED_KHOP)),
+            ("pinsage", dict(sample_type=SampleType.RANDOM_WALK))):
+        cfg = small_config(model, **kw)
+        cpu = HostSamplingEngine(cfg, ds, "cpu")
+        gpu = HostSamplingEngine(cfg, ds, dev)
+        gpu.model.load_state_dict(cpu.model.state_dict())
+        for seeds, n, step in cpu.shuffler.batches(0):
+            lc, _, bc = cpu.step(seeds, n)
+            lg, _, bg = gpu.step(seeds, n)
+            check_batches_equal(bc, bg, f"arch0 {model} step {step}")
+            check(abs(float(lc) - float(lg)) < 1e-4,
+                  f"arch0 {model} step {step}: loss cpu {float(lc)} gpu "
+                  f"{float(lg)}")
+            print(f"  {model} {cfg.sample_type.value} step {step}: loss cpu "
+                  f"{float(lc):.6f} gpu {float(lg):.6f}, host batches equal")
+            if step == 2:
+                break
+
+
+def arch0_engine(dev, ds, **kw):
+    """arch0 at the bench configuration (GraphSAGE [25, 10], batch 8000,
+    hidden 256; float32, as the reference's arch0), ``kw`` on top."""
+    from fgnn_tpu_torch.config import RunConfig, SampleType
+    from fgnn_tpu_torch.host_engine import HostSamplingEngine
+
+    cfg = RunConfig(model="graphsage", fanout=(25, 10), batch_size=8000,
+                    num_hidden=256, sample_type=SampleType.KHOP2, dropout=0.5,
+                    lr=0.003).replace(**kw)
+    t0 = time.perf_counter()
+    eng = HostSamplingEngine(cfg, ds, dev)
+    print(f"  arch0 engine init {time.perf_counter() - t0:.1f} s; plan "
+          f"{eng.plan}")
+    return eng
+
+
+def arch0_epochs(dev, card, eng, label, per_step, n=1, start=0):
+    """``n`` epochs with the launch count, the host gather's counters and
+    the peak memory over them."""
+    import torch
+    from fgnn_tpu_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng.host_feat.reset_counters()
+    cuda_lib.reset_launches()
+    results = eng.run_epochs(start, n)
+    launches = cuda_lib.launches.get("gather_rows", 0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    c = eng.host_feat.counters()
+    steps = sum(r["num_step"] for r in results)
+    for r in results:
+        extra = ""
+        if "miss_bytes" in r:
+            extra = (f"; hit rate "
+                     f"{1.0 - r['miss_bytes'] / r['feature_bytes']:.4f}")
+        print(f"  {label} epoch {r['epoch']}: loss {r['loss']:.4f} acc "
+              f"{r['acc']:.4f} epoch_time {r['epoch_time']:.4f} s (mean step "
+              f"{r['epoch_time'] / r['num_step'] * 1e3:.2f} ms over "
+              f"{r['num_step']}){extra} ({card})")
+    print(f"  {label}: gather_rows launches {launches} ({launches / steps:g} "
+          f"a step); host gather {c['gather_rows']} rows, {c['gather_bytes']} "
+          f"B in {c['gather_s']:.4f} s = "
+          f"{c['gather_bytes'] / max(c['gather_s'], 1e-9) / 1e9:.2f} GB/s; "
+          f"upload {c['upload_bytes']} B in {c['upload_ms']:.4f} ms device "
+          f"time; overflow {eng.last_overflowed}; peak memory {peak} B "
+          f"({card})")
+    check(all(math.isfinite(r["loss"]) for r in results),
+          f"{label}: losses {[r['loss'] for r in results]}")
+    check(not eng.last_overflowed, f"{label}: an epoch overflowed its caps")
+    check(launches == per_step * steps,
+          f"{label}: {launches} launches for {steps} steps")
+    return results, launches
+
+
+def arch0_stages(dev, card, eng, steps=8):
+    """Where an arch0 step's time goes: ``steps`` steps stage by stage with
+    a sync after each (host clock), medians in ms; the host gather and the
+    feature upload split by the loader's counters (host clock, CUDA
+    events)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from fgnn_tpu_torch.host_engine import batch_to
+
+    host = eng.host_feat
+    rng = np.random.default_rng(9)
+    names = ("host sample", "batch upload", "host gather + feature upload",
+             "train")
+    spans = {k: [] for k in names + ("host gather", "feature upload")}
+    for seeds, n, i in eng.shuffler.batches(5):
+        if i == steps:
+            break
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+
+        def stage():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        hb = eng.sample(rng, seeds, n)
+        stage()
+        b = batch_to(hb, dev)
+        stage()
+        host.reset_counters()
+        feats = eng.features(hb, b)
+        stage()
+        c = host.counters()
+        eng.train_on(b, feats)
+        stage()
+        for k, a, z in zip(names, t, t[1:]):
+            spans[k].append((z - a) * 1e3)
+        spans["host gather"].append(c["gather_s"] * 1e3)
+        spans["feature upload"].append(c["upload_ms"])
+    med = {k: statistics.median(v) for k, v in spans.items()}
+    print(f"  synced stages of an arch0 step, median of {steps} (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+          + f"; sum of stages {sum(med[k] for k in names):.2f} ({card})")
+
+
+def arch0_phase(dev, card, ds):
+    """Phase 19 (see the module docstring). Returns the row gather's
+    launches over its runs."""
+    from fgnn_tpu_torch.config import CachePolicy, SampleType
+
+    eng = arch0_engine(dev, ds)
+    # every hop dedups: each layer's gather_src launches the row gather
+    results, total = arch0_epochs(dev, card, eng, "arch0 GraphSAGE", 2, n=2)
+    l0, l1 = results[0]["loss"], results[1]["loss"]
+    check(l1 < l0, f"arch0 epoch-1 loss {l1} is not below epoch 0's {l0}")
+    arch0_stages(dev, card, eng)
+    wall, busy, top = device_busy(dev, lambda: eng.run_epoch(2))
+    print(f"  arch0 GraphSAGE epoch 2 under torch.profiler: wall {wall:.4f} "
+          f"s, card busy {busy:.4f} s ({busy / wall:.1%}); top device time: "
+          + ", ".join(f"{n[:40]} {us / 1e3:.1f} ms" for n, us in top)
+          + f" ({card})")
+    del eng
+    for label, kw, per_step in (
+            ("arch0 GraphSAGE PRESAMPLE 10%",
+             dict(cache_policy=CachePolicy.PRESAMPLE, cache_percentage=0.1),
+             3),
+            ("arch0 PinSAGE 3 x 5, W=4, L=3",
+             dict(model="pinsage", sample_type=SampleType.RANDOM_WALK,
+                  num_layer_rw=3, num_neighbor=5, num_random_walk=4,
+                  random_walk_length=3, random_walk_restart_prob=0.5), 3)):
+        eng = arch0_engine(dev, ds, **kw)
+        _, launches = arch0_epochs(dev, card, eng, label, per_step)
+        total += launches
+        del eng
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -964,7 +1437,7 @@ def main() -> int:
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/15] device")
+    print("[1/19] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -976,58 +1449,73 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/15] build")
+    print("[2/19] build")
     kernels = ("gather_rows", "stream_add_one")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/15] row gather against plain version")
+    print("[3/19] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/15] small input, GraphSAGE: card against CPU")
+    print("[4/19] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/15] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/19] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
     sage_launches = main_path_phase(dev, card, ds)
 
-    print("[6/15] streaming pass against plain version")
+    print("[6/19] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/15] gather campaign: stream and kernel phases")
+    print("[7/19] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/15] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/19] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/15] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    print("[9/19] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
     gcn_launches = gcn_phase(dev, card, ds)
 
-    print("[10/15] small input, PinSAGE: card against CPU")
+    print("[10/19] small input, PinSAGE: card against CPU")
     small_input_phase(dev, model="pinsage",
                       sample_type=SampleType.RANDOM_WALK)
 
-    print("[11/15] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+    print("[11/19] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
           "evaluate")
     pinsage_launches = pinsage_phase(dev, card, ds)
 
-    print("[12/15] small input, GAT: card against CPU, eval-mode logits and "
+    print("[12/19] small input, GAT: card against CPU, eval-mode logits and "
           "gradients")
     gat_small_phase(dev)
 
-    print("[13/15] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+    print("[13/19] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
           "evaluate")
     gat_launches = gat_phase(dev, card, ds)
 
-    print("[14/15] small input, host-resident table, PRESAMPLE and "
+    print("[14/19] small input, host-resident table, PRESAMPLE and "
           "DYNAMIC_CACHE: card against CPU")
     cache_small_phase(dev)
 
-    print("[15/15] GraphSAGE main path, feature table in host memory: hit "
+    print("[15/19] GraphSAGE main path, feature table in host memory: hit "
           "rates, pipelined cache epochs, host path, dynamic cache")
     cache_launches = cache_phase(dev, card, ds)
+
+    print("[16/19] small input, KHOP1 and the weighted samplers: card "
+          "against CPU; the direct-index dedup at the main path's shapes")
+    other_samplers_small_phase(dev)
+    remap_phase(dev, card, ds)
+
+    print("[17/19] KHOP1 and the weighted samplers at full width, 1M-node "
+          "graph")
+    other_launches = other_samplers_phase(dev, card, ds)
+
+    print("[18/19] small input, arch0 (host sampling): card against CPU")
+    arch0_small_phase(dev)
+
+    print("[19/19] arch0 at the bench configuration, 1M-node graph")
+    arch0_launches = arch0_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     best = min(s_timing, key=lambda c: s_timing[c]["ms"])
@@ -1039,7 +1527,8 @@ def main() -> int:
         source="fgnn_tpu_torch/csrc/gather_rows.cu",
         replaces="fgnn_tpu/ops/pallas_gather2.py:131",
         launches=(sage_launches + gcn_launches + pinsage_launches
-                  + gat_launches + cache_launches),
+                  + gat_launches + cache_launches + other_launches
+                  + arch0_launches),
         max_abs_err=max_err,
         bound_by="bytes",
         **timing["feature gather"],

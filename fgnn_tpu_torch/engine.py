@@ -18,10 +18,12 @@ memory (``feat_on_device``).
   cache. With ``cfg.pipeline`` (the default) the host gather and upload of
   batch k+1 run on a worker thread and a copy stream while batch k trains.
 
-Ported: GraphSAGE, GCN, GAT (KHOP0/KHOP2) and PinSAGE (RANDOM_WALK), the
-device-resident and host-resident paths, the static and dynamic caches, and
-evaluation. Not yet: the other samplers (KHOP1, weighted), checkpoints,
-sanity checks and profiling levels (ROADMAP.md).
+Ported: GraphSAGE, GCN and GAT over every khop sampler (KHOP0/KHOP2,
+KHOP1, WEIGHTED_KHOP, WEIGHTED_KHOP_PREFIX, WEIGHTED_KHOP_HASH_DEDUP) and
+PinSAGE (RANDOM_WALK), the device-resident and host-resident paths, the
+static and dynamic caches, and evaluation. Not yet: checkpoints, sanity
+checks and profiling levels (ROADMAP.md). Host sampling (arch0) is
+:mod:`fgnn_tpu_torch.host_engine`.
 """
 from __future__ import annotations
 
@@ -39,11 +41,13 @@ from .cache.presample import RandFn, presample_ranking, presample_static_ranking
 from .config import CachePolicy, RunConfig, SampleType
 from .data.schema import Dataset
 from .models.gnn import build_model
-from .ops.extract import HostFeatures, device_gather, label_gather, mock_gather
+from .ops.extract import (HostFeatures, device_gather, host_table,
+                          label_gather, mock_gather)
 from .ops.padding import make_plan
 from .ops.random_walk import random_walk_topk, walk_uniform_shapes
 from .ops.reference_impl import calibrate_caps
-from .ops.sampling import CSRGraph, multi_layer_sample, uniform_shapes
+from .ops.sampling import (WEIGHT_TABLES, CSRGraph, check_weight_tables,
+                           multi_layer_sample, uniform_shapes)
 from .parallel.shuffler import EpochShuffler
 from .train.loop import eval_step, make_optimizer, train_step
 from .utils import get_logger
@@ -69,10 +73,8 @@ class OneChipEngine:
         on the CPU). A table over it stays in host memory. ``presample_rand
         (epoch, step)`` injects the presample's per-hop uniforms."""
         cfg.validate()
-        if cfg.sample_type not in (SampleType.KHOP0, SampleType.KHOP2,
-                                   SampleType.RANDOM_WALK):
-            raise NotImplementedError(
-                f"{cfg.sample_type} is not ported yet (ROADMAP.md A12)")
+        # a weighted sampler without its tables fails here, not in a step
+        check_weight_tables(ds, cfg.sample_type)
         self.cfg = cfg
         self.ds = ds
         self.device = torch.device(device)
@@ -89,11 +91,23 @@ class OneChipEngine:
                                         cfg.weight_decay)
 
         # --- topology to device ------------------------------------------
+        # (an int32 ``indices``, an np.memmap included, is not copied on the
+        # host; a CPU engine reads it in place). The weighted samplers' tables
+        # go up by the reference's rule (fgnn_tpu/engine.py:88-112): the
+        # alias tables for WEIGHTED_KHOP and HASH_DEDUP, the prefix table for
+        # PREFIX and HASH_DEDUP.
         indptr = np.asarray(ds.indptr)
         indices = np.asarray(ds.indices)
+        tables = {
+            name: host_table(np.asarray(getattr(ds, name), dtype)).to(dev)
+            for name, dtype in (("prob_table", np.float32),
+                                ("alias_table", np.int32),
+                                ("prob_prefix_table", np.float32))
+            if name in WEIGHT_TABLES.get(cfg.sample_type, ())}
         self.graph = CSRGraph(
             indptr=torch.as_tensor(indptr.astype(np.int64), device=dev),
-            indices=torch.as_tensor(indices.astype(np.int32), device=dev),
+            indices=host_table(np.asarray(indices, np.int32)).to(dev),
+            **tables,
         )
 
         # --- feature placement: the device if the table fits ---------------
@@ -110,9 +124,12 @@ class OneChipEngine:
         # its 1/sqrt(out-degree) source normalisation counts block
         # occurrences, which skipping dedup changes, and it reads those
         # counts from the dedup sort. A host-resident table dedups every hop:
-        # each duplicate would be one more row through the host. The uniform
-        # samplers' no-dedup last hop is degree-tiered; PinSAGE's walks every
-        # hop at K = num_neighbor
+        # each duplicate would be one more row through the host. The no-dedup
+        # last hop is degree-tiered for the uniform samplers without
+        # replacement only (take-all on a narrow tier is their distribution,
+        # not KHOP1's or a weighted one's); PinSAGE's walks every hop at K =
+        # num_neighbor. KHOP1 calibrates its caps with replacement, every
+        # other sampler as a uniform one without
         gcn = cfg.model == "gcn"
         walk = cfg.sample_type == SampleType.RANDOM_WALK
         self.dedup_last_hop = gcn or not self.feat_on_device
@@ -120,14 +137,15 @@ class OneChipEngine:
         fan_sampling = ([cfg.num_neighbor] * cfg.num_layer_rw if walk
                         else list(reversed(cfg.fanout)))
         tier_stats = None
-        if gcn or walk:
+        calibrate = dict(seed=cfg.seed,
+                         replace=cfg.sample_type == SampleType.KHOP1)
+        if gcn or cfg.sample_type not in (SampleType.KHOP0, SampleType.KHOP2):
             caps = calibrate_caps(indptr, indices, np.asarray(ds.train_set),
-                                  cfg.batch_size, fan_sampling, seed=cfg.seed)
+                                  cfg.batch_size, fan_sampling, **calibrate)
         else:
             caps, tier_stats = calibrate_caps(
                 indptr, indices, np.asarray(ds.train_set), cfg.batch_size,
-                fan_sampling, seed=cfg.seed, tier_candidates=TIER_CANDIDATES,
-            )
+                fan_sampling, tier_candidates=TIER_CANDIDATES, **calibrate)
         self.plan = make_plan(cfg.batch_size, list(reversed(fan_sampling)),
                               ds.num_node, unique_caps=caps,
                               tier_stats=tier_stats)
@@ -411,7 +429,10 @@ class OneChipEngine:
         training generators where they were. ``rand(step)`` injects the
         uniforms of a step instead (:meth:`uniform_shapes` with dedup).
         A host-resident table is read on the host without the cache, as in
-        the reference, so evaluating leaves a dynamic cache as it was."""
+        the reference, so evaluating leaves a dynamic cache as it was. An
+        empty-feat table is read modulo its rows, as training reads it (the
+        reference's evaluate reads it with ``device_gather``, which gives
+        NaN rows past the table's end)."""
         cfg = self.cfg
         nodes = np.asarray(node_set if node_set is not None
                            else self.ds.test_set)

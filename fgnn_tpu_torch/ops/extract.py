@@ -181,11 +181,15 @@ class HostFeatures:
     def fetch(self, ids: torch.Tensor, counts: torch.Tensor) -> Fetch:
         """Queue the device-to-host copy of ``ids`` ([cap] int32) and
         ``counts`` ([k] int32; ``counts[0]`` is the number of leading ids a
-        compact :meth:`load` gathers)."""
+        compact :meth:`load` gathers). Ids already on the host (the host
+        sampler's) are taken as they are."""
         slot = self._next
         self._next = (self._next + 1) % len(self._slots)
         if not self.cuda:
             return Fetch(ids, counts, None, None, slot)
+        if ids.device.type == "cpu":
+            return Fetch(ids, counts, None,
+                         torch.cuda.current_stream(self.device), slot)
         s = self._slots[slot]
         s.ids = _grown(s.ids, ids.shape, torch.int32, True)
         s.counts = _grown(s.counts, counts.shape, torch.int32, True)

@@ -4,6 +4,8 @@ Same contract as the reference's :func:`unique_and_remap`: seeds keep their
 input positions as locals, new ids are appended in ascending global id,
 locals at or past ``out_cap`` become -1, and an overflow flag reports the
 clipping. Padding (-1) maps to INT_MAX before the sort, so it sorts last.
+:func:`unique_and_remap_direct` gives the same results without a sort,
+through a direct-index table over the graph's nodes.
 """
 from __future__ import annotations
 
@@ -108,3 +110,62 @@ def unique_and_remap(
     counts[tgt] = cnt
     return (unique, num_unique.int(), nbr_local, overflowed,
             counts[:out_cap].int())
+
+
+def unique_and_remap_direct(
+    seeds: torch.Tensor,
+    num_seeds: torch.Tensor,
+    neighbors: torch.Tensor,
+    out_cap: int,
+    num_node: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-free :func:`unique_and_remap` (without counts) through a
+    direct-index table of ``num_node`` entries: the source system's
+    ``SXN_NAIVE_HASHMAP`` OrderedHashTable (cuda_hashtable.h:70-94).
+
+    Scatters mark the seeds' positions and the neighbours seen, an
+    inclusive cumsum over the table ranks the new ids in ascending order,
+    and gathers read each neighbour's local back. Same outputs as
+    :func:`unique_and_remap` for a frontier of distinct seeds; O(num_node
+    + E) work and ``num_node`` int32 and bool of scratch per call.
+    """
+    S = seeds.shape[0]
+    device = seeds.device
+    seeds_ok = seeds >= 0
+    nbr_ok = neighbors >= 0
+    # padding writes and reads slot num_node, which no real id uses
+    seed_slot = torch.where(seeds_ok, seeds, num_node).long()
+    nbr_slot = torch.where(nbr_ok, neighbors, num_node).long()
+
+    seed_local = torch.full((num_node + 1,), -1, dtype=torch.int32,
+                            device=device)
+    seed_local[seed_slot] = torch.arange(S, dtype=torch.int32, device=device)
+    seed_local[num_node] = -1
+    present = torch.zeros(num_node + 1, dtype=torch.bool, device=device)
+    present[nbr_slot] = True
+    present = present & (seed_local < 0)
+    present[num_node] = False
+
+    # dense ranks of the new ids, in ascending id
+    rank = torch.cumsum(present, 0, dtype=torch.int32)       # inclusive
+    num_new = rank[-1]
+    new_local = S + rank - 1                                  # where present
+
+    as_seed = seed_local[nbr_slot]
+    local = torch.where(as_seed >= 0, as_seed, new_local[nbr_slot])
+    local = torch.where(local >= out_cap, -1, local)          # clipped
+    nbr_local = torch.where(nbr_ok, local, -1)
+
+    # unique list: the seeds block, then the new ids at their ranks; the
+    # rest (and ids past out_cap) land in a trash slot that is cut off
+    unique = torch.full((out_cap + 1,), INT_MAX, dtype=torch.int64,
+                        device=device)
+    unique[:S] = _to_sentinel(seeds)
+    tgt = torch.where(present & (new_local < out_cap), new_local, out_cap)
+    unique[tgt.long()] = torch.where(
+        present, torch.arange(num_node + 1, device=device), INT_MAX)
+    unique = unique[:out_cap]
+    unique = torch.where(unique == INT_MAX, -1, unique).int()
+    overflowed = (S + num_new) > out_cap
+    num_unique = num_seeds + torch.clamp(num_new, max=out_cap - S)
+    return unique, num_unique.int(), nbr_local, overflowed

@@ -4,8 +4,9 @@
 unique counts and last-hop degree-tier counts, which :func:`make_plan` turns
 into static caps. It consumes the NumPy generator in the same order as the
 reference, so both frameworks get the same plan from the same seed.
-Only sampling without replacement is ported (the reference's
-``replace=True`` serves KHOP1, not ported yet).
+``replace=True`` samples with replacement, as KHOP1 does; every other
+sampler, the weighted ones included, calibrates as a uniform sampler
+without replacement, as in the reference.
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ def np_sample_hop_vec(
     indices: np.ndarray,
     seeds: np.ndarray,
     fanout: int,
+    replace: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Vectorised hop sampler, uniform without replacement (Floyd).
+    """Vectorised hop sampler, uniform with replacement or without it
+    (Floyd).
 
     seeds: [n] valid node ids. Returns (nbr [n, fanout] int32 -1-padded,
     valid mask [n, fanout]).
@@ -30,17 +33,21 @@ def np_sample_hop_vec(
     off = indptr[seeds]
     deg = (indptr[seeds + 1] - off).astype(np.int64)
     u = rng.random((n, fanout))
-    idx = np.full((n, fanout), -1, dtype=np.int64)
-    big = deg >= fanout
-    for j in range(fanout):
-        J = deg - fanout + j
-        t = np.minimum((u[:, j] * (J + 1)).astype(np.int64), J)
-        if j > 0:
-            coll = (idx[:, :j] == t[:, None]).any(axis=1)
-            t = np.where(coll, J, t)
-        small = np.where(j < deg, j, -1)
-        idx[:, j] = np.where(big, t, small)
-    valid = idx >= 0
+    if replace:
+        idx = np.minimum((u * deg[:, None]).astype(np.int64), deg[:, None] - 1)
+        valid = np.broadcast_to((deg > 0)[:, None], idx.shape)
+    else:
+        idx = np.full((n, fanout), -1, dtype=np.int64)
+        big = deg >= fanout
+        for j in range(fanout):
+            J = deg - fanout + j
+            t = np.minimum((u[:, j] * (J + 1)).astype(np.int64), J)
+            if j > 0:
+                coll = (idx[:, :j] == t[:, None]).any(axis=1)
+                t = np.where(coll, J, t)
+            small = np.where(j < deg, j, -1)
+            idx[:, j] = np.where(big, t, small)
+        valid = idx >= 0
     flat = off[:, None] + np.maximum(idx, 0)
     nbr = indices[np.minimum(flat, len(indices) - 1)].astype(np.int32)
     return np.where(valid, nbr, -1), valid
@@ -54,6 +61,7 @@ def calibrate_caps(
     fanouts_sampling_order: Sequence[int],
     num_probe: int = 8,
     seed: int = 0,
+    replace: bool = False,
     tier_candidates: Optional[Sequence[int]] = None,
 ):
     """Per-hop ``(cumulative, new)`` unique-count caps from probe batches.
@@ -61,6 +69,7 @@ def calibrate_caps(
     Each cap is the max over probes plus the probe-to-probe range as
     headroom. With ``tier_candidates`` also returns ``{t: [per-probe count
     of last-hop frontier vertices with deg > t]}`` for the tier search.
+    ``replace`` is the probes' sampling with replacement.
     """
     rng = np.random.default_rng(seed)
     num_probe = max(2, num_probe)
@@ -79,7 +88,8 @@ def calibrate_caps(
                 deg = indptr[cur + 1] - indptr[cur]
                 for fB in tier_obs:
                     tier_obs[fB].append(int((deg > fB).sum()))
-            nbr, valid = np_sample_hop_vec(rng, indptr, indices, cur, f)
+            nbr, valid = np_sample_hop_vec(rng, indptr, indices, cur, f,
+                                           replace)
             uniq = np.union1d(cur, nbr[valid])
             obs[l].append(len(uniq))
             obs_new[l].append(len(uniq) - len(cur))

@@ -1,18 +1,24 @@
-"""Neighbourhood sampling, main-path subset (port of
-``fgnn_tpu/ops/sampling.py``).
+"""Neighbourhood sampling (port of ``fgnn_tpu/ops/sampling.py``).
 
 Static shapes as in the reference: every hop emits a fixed number of edge
 slots, -1 padded, with a validity mask. Ported: uniform sampling without
-replacement (KHOP0/KHOP2) by Floyd's algorithm, the one-sort dedup hop and
-the degree-tiered no-dedup last hop. The TPU workarounds of the reference
-(``take_1d_blocked`` lane selects over a lane-padded ``indices``, the region
-fetch) are left out: plain indexing is the gather here.
+replacement (KHOP0/KHOP2) by Floyd's algorithm and with replacement
+(KHOP1), the weighted samplers over the dataset's per-edge tables (alias,
+prefix-sum binary search, and the hash-dedup sampler's take-all / Gumbel
+top-k / first-k-distinct branches), the one-sort dedup hop with its
+direct-index alternative, and the degree-tiered no-dedup last hop. The TPU
+workarounds of the reference (``take_1d_blocked`` lane selects over a
+lane-padded ``indices``, the region fetch, the hash-dedup sampler's
+two-row weight window) are left out: plain indexing is the gather here.
 
-Randomness: every sampler takes its ``[n, fanout]`` float32 uniforms as
+Randomness: every sampler takes its float32 uniforms of one hop as
 ``rand``, either a :class:`torch.Generator` on the tensors' device or the
-tensor itself. The injected form lets a test feed the reference's exact
-``jax.random.uniform(fold_in(key, hop), shape)`` draws; then picks, locals
-and masks match the reference exactly.
+``[n, width]`` tensor itself (:func:`draw_width`). The injected form lets a
+test feed the reference's exact ``jax.random.uniform`` draws; then picks,
+locals and masks match the reference exactly. A sampler that takes several
+draws reads them as column blocks of the one tensor, in the reference's
+order: the alias sampler ``[u1 | u2]`` (``split(key)``), the hash-dedup
+sampler ``[gumbel (128 columns) | alias u1 | alias u2]``.
 """
 from __future__ import annotations
 
@@ -21,11 +27,29 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..config import SampleType
-from .hashtable import unique_and_remap
+from ..config import SampleType, env_int
+from .hashtable import unique_and_remap, unique_and_remap_direct
 from .padding import SamplePlan
 
 Rand = Union[torch.Generator, torch.Tensor]
+
+# direct-index dedup (the source system's SXN_NAIVE_HASHMAP): used by every
+# dedup hop without counts on a graph of at most this many nodes; 0, the
+# reference's default, keeps the one-sort dedup everywhere
+DIRECT_REMAP_MAX_NODES = env_int("FGNN_TPU_DIRECT_REMAP_MAX_NODES", 0)
+# oversampling rounds of the hash-dedup sampler's stream branch: T = ROUNDS
+# * fanout alias draws, the first `fanout` distinct kept
+HASHDEDUP_ROUNDS = env_int("FGNN_TPU_HASHDEDUP_ROUNDS", 4)
+# degree bound of the hash-dedup sampler's exact Gumbel branch
+GUMBEL_MAX_DEG = 128
+
+# the per-edge tables each weighted sampler reads
+WEIGHT_TABLES = {
+    SampleType.WEIGHTED_KHOP: ("prob_table", "alias_table"),
+    SampleType.WEIGHTED_KHOP_PREFIX: ("prob_prefix_table",),
+    SampleType.WEIGHTED_KHOP_HASH_DEDUP: ("prob_table", "alias_table",
+                                          "prob_prefix_table"),
+}
 
 
 @dataclasses.dataclass
@@ -37,6 +61,31 @@ class CSRGraph:
     prob_table: Optional[torch.Tensor] = None
     alias_table: Optional[torch.Tensor] = None
     prob_prefix_table: Optional[torch.Tensor] = None
+
+    @property
+    def num_node(self) -> int:
+        return self.indptr.shape[0] - 1
+
+
+def check_weight_tables(holder, sample_type: SampleType) -> None:
+    """Raise ``ValueError`` when ``holder`` (a ``Dataset`` or a
+    :class:`CSRGraph`) lacks a table that ``sample_type`` reads."""
+    missing = [t for t in WEIGHT_TABLES.get(sample_type, ())
+               if getattr(holder, t) is None]
+    if missing:
+        raise ValueError(
+            f"{sample_type.value} samples over the per-edge tables "
+            f"{', '.join(missing)}, which are missing: build them with "
+            "fgnn_tpu_torch.data.build_alias_tables(ds)")
+
+
+def draw_width(sample_type: SampleType, fanout: int) -> int:
+    """Columns of one hop's ``[n, width]`` uniforms for ``sample_type``."""
+    if sample_type == SampleType.WEIGHTED_KHOP:
+        return 2 * fanout
+    if sample_type == SampleType.WEIGHTED_KHOP_HASH_DEDUP:
+        return GUMBEL_MAX_DEG + 2 * HASHDEDUP_ROUNDS * fanout
+    return fanout
 
 
 @dataclasses.dataclass
@@ -115,6 +164,126 @@ def _floyd_without_replacement(
     return picks, picks >= 0
 
 
+def _with_replacement(u: torch.Tensor, deg: torch.Tensor, fanout: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KHOP1: ``fanout`` uniform slots of [0, deg) with replacement,
+    ``min(floor(u * float32(deg)), deg - 1)``."""
+    idx = torch.floor(u * deg[:, None].to(torch.float32)).to(torch.int32)
+    idx = torch.minimum(idx, deg[:, None] - 1)
+    valid = (deg > 0)[:, None].expand(idx.shape)
+    return torch.where(valid, idx, -1), valid
+
+
+def _weighted_alias(u: torch.Tensor, deg: torch.Tensor, off: torch.Tensor,
+                    graph: CSRGraph, fanout: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alias-method weighted sampling with replacement
+    (cuda_sampling_weighted_khop.cu): a uniform slot j from ``u[:, :f]``,
+    kept if ``u[:, f:] < prob[off + j]``, else ``alias[off + j]``."""
+    u1, u2 = u[:, :fanout], u[:, fanout:]
+    slot = torch.minimum(
+        torch.floor(u1 * deg[:, None].to(torch.float32)).to(torch.int32),
+        deg[:, None] - 1)
+    flat = (off[:, None] + slot).clamp(0, graph.indices.shape[0] - 1)
+    idx = torch.where(u2 < graph.prob_table[flat], slot,
+                      graph.alias_table[flat])
+    valid = (deg > 0)[:, None].expand(idx.shape)
+    return torch.where(valid, idx, -1), valid
+
+
+def _weighted_prefix(u: torch.Tensor, deg: torch.Tensor, off: torch.Tensor,
+                     graph: CSRGraph, fanout: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted sampling with replacement by binary search on the
+    per-vertex prefix sums (cuda_sampling_weighted_khop_prefix.cu): the
+    smallest j with ``prefix[off + j] >= u * total``, in float32 and over
+    32 steps, as the reference."""
+    prefix = graph.prob_prefix_table
+    E = prefix.shape[0]
+    n = deg.shape[0]
+    last = (off + deg - 1).clamp(0, E - 1)
+    total = torch.where(deg > 0, prefix[last], 0.0)
+    u = u * total[:, None]
+    lo = torch.zeros((n, fanout), dtype=torch.int32, device=deg.device)
+    hi = deg[:, None].expand(n, fanout)
+    for _ in range(32):
+        mid = (lo + hi) // 2
+        go_right = prefix[(off[:, None] + mid).clamp(0, E - 1)] < u
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    idx = torch.minimum(lo, deg[:, None] - 1)
+    valid = (deg > 0)[:, None].expand(idx.shape)
+    return torch.where(valid, idx, -1), valid
+
+
+def _first_k_distinct(idx: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row, the first k distinct values of ``idx`` in draw order (a
+    weighted sample without replacement, given the stream holds k distinct
+    values). Short rows pad with -1/False."""
+    n, T = idx.shape
+    sv, order = torch.sort(idx, dim=-1, stable=True)   # by value, ties by pos
+    first = torch.ones_like(sv, dtype=torch.bool)
+    first[:, 1:] = sv[:, 1:] != sv[:, :-1]
+    # first-occurrence positions of each distinct value; T = "no value"
+    spos = torch.sort(torch.where(first, order, T), dim=-1).values[:, :k]
+    valid = spos < T
+    picks = idx.gather(1, spos.clamp(max=T - 1))
+    return torch.where(valid, picks, -1), valid
+
+
+def _weighted_gumbel_dedup(u: torch.Tensor, deg: torch.Tensor,
+                           off: torch.Tensor, graph: CSRGraph, fanout: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted sampling without replacement, the hash-dedup sampler
+    (cuda_sampling_weighted_khop_hash_dedup.cu), by degree:
+
+      deg <= fanout       : every slot once;
+      fanout < deg <= 128 : exact, the top ``fanout`` of
+                            ``log w_j + Gumbel_j`` over the vertex's
+                            weights, ``w_j`` the prefix table's differences;
+      deg > 128           : ``HASHDEDUP_ROUNDS * fanout`` alias draws, the
+                            first ``fanout`` distinct kept (shortfall rows
+                            keep fewer edges).
+
+    ``u[:, :128]`` feeds the Gumbel noise, ``u[:, 128:]`` the alias draws.
+    The top-k is a stable descending sort: among equal scores the lower
+    slot first, the order of ``jax.lax.top_k`` (``torch.topk`` promises no
+    order among ties).
+    """
+    G = GUMBEL_MAX_DEG
+    if fanout > G:
+        raise ValueError(f"hash-dedup sampling needs fanout <= {G}, got "
+                         f"{fanout}")
+    prefix = graph.prob_prefix_table
+    device = deg.device
+    col = torch.arange(fanout, dtype=torch.int32, device=device)
+    small = col[None, :] < deg[:, None]
+
+    # Gumbel branch: w_0 = prefix[off], w_j = prefix[off+j] - prefix[off+j-1]
+    wcol = torch.arange(G, device=device)
+    win = prefix[(off[:, None] + wcol).clamp(0, prefix.shape[0] - 1)]
+    w = torch.cat([win[:, :1], win[:, 1:] - win[:, :-1]], dim=1)
+    in_deg = wcol[None, :] < deg.clamp(max=G)[:, None]
+    gumbel = -torch.log(-torch.log(u[:, :G].clamp(1e-20, 1.0)))
+    score = torch.where(in_deg, torch.log(w.clamp(min=1e-20)) + gumbel,
+                        -torch.inf)
+    gumbel_picks = torch.sort(score, dim=1, descending=True,
+                              stable=True).indices[:, :fanout].to(torch.int32)
+
+    # stream branch: oversample, then the first `fanout` distinct
+    draws, _ = _weighted_alias(u[:, G:], deg, off, graph,
+                               HASHDEDUP_ROUNDS * fanout)
+    stream_picks, stream_ok = _first_k_distinct(draws, fanout)
+
+    big = deg[:, None] > fanout
+    huge = deg[:, None] > G
+    picks = torch.where(huge, stream_picks,
+                        torch.where(big, gumbel_picks, col[None, :]))
+    valid = torch.where(huge, stream_ok, big | small)
+    return torch.where(valid, picks, -1), valid
+
+
 def _offsets_degrees(graph: CSRGraph, nodes: torch.Tensor):
     node_ok = nodes >= 0
     safe = torch.where(node_ok, nodes, 0).long()
@@ -137,19 +306,29 @@ def sample_layer(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample one hop.
 
-    inputs: [N_cap] int32 seed ids, -1 padded. Returns (neighbours
-    [N_cap*fanout] int32 -1-padded, slot i*fanout+j is seed i's j-th pick;
-    valid [N_cap*fanout] bool). The reference also returns a region-fetch
-    overflow flag, which is always False without the region fetch.
+    inputs: [N_cap] int32 seed ids, -1 padded. ``rand``: the hop's
+    ``[N_cap, draw_width(sample_type, fanout)]`` uniforms or a generator.
+    Returns (neighbours [N_cap*fanout] int32 -1-padded, slot i*fanout+j is
+    seed i's j-th pick; valid [N_cap*fanout] bool). The reference also
+    returns a region-fetch overflow flag, which is always False without the
+    region fetch.
     """
-    if sample_type not in (SampleType.KHOP0, SampleType.KHOP2):
-        raise NotImplementedError(
-            f"sample_layer: {sample_type} is not ported yet (ROADMAP.md A12)"
-        )
     n = inputs.shape[0]
+    check_weight_tables(graph, sample_type)
     node_ok, off, deg = _offsets_degrees(graph, inputs)
-    u = _uniforms(rand, (n, fanout), inputs.device)
-    idx, valid = _floyd_without_replacement(u, deg, fanout)
+    u = _uniforms(rand, (n, draw_width(sample_type, fanout)), inputs.device)
+    if sample_type in (SampleType.KHOP0, SampleType.KHOP2):
+        idx, valid = _floyd_without_replacement(u, deg, fanout)
+    elif sample_type == SampleType.KHOP1:
+        idx, valid = _with_replacement(u, deg, fanout)
+    elif sample_type == SampleType.WEIGHTED_KHOP:
+        idx, valid = _weighted_alias(u, deg, off, graph, fanout)
+    elif sample_type == SampleType.WEIGHTED_KHOP_HASH_DEDUP:
+        idx, valid = _weighted_gumbel_dedup(u, deg, off, graph, fanout)
+    elif sample_type == SampleType.WEIGHTED_KHOP_PREFIX:
+        idx, valid = _weighted_prefix(u, deg, off, graph, fanout)
+    else:
+        raise ValueError(f"sample_layer does not handle {sample_type}")
     nbr = _neighbours(graph, off[:, None] + idx.clamp(min=0).long())
     valid = valid.reshape(-1) & node_ok.repeat_interleave(fanout)
     return torch.where(valid, nbr, -1), valid
@@ -265,7 +444,7 @@ def _tiered(plan: SamplePlan, sample_type: SampleType,
 def uniform_shapes(plan: SamplePlan, sample_type: SampleType,
                    dedup_last_hop: bool) -> List[Tuple[int, int]]:
     """Shape of the uniforms each hop of :func:`multi_layer_sample` draws."""
-    shapes = [(plan.num_input_cap[h], plan.fanouts[h])
+    shapes = [(plan.num_input_cap[h], draw_width(sample_type, plan.fanouts[h]))
               for h in range(plan.num_layer)]
     if _tiered(plan, sample_type, dedup_last_hop):
         shapes[-1] = tuple(plan.tier_layout[0])
@@ -286,7 +465,9 @@ def multi_layer_sample(
     """Sample all hops + dedup + local-id remap.
 
     Per hop: sample, then (unless this is the no-dedup last hop) the
-    one-sort ``unique_and_remap``; the final unique list is the batch's
+    one-sort ``unique_and_remap`` (the direct-index one on a graph of at
+    most ``DIRECT_REMAP_MAX_NODES`` nodes, where no counts are asked for);
+    the final unique list is the batch's
     ``input_nodes``. ``dedup_last_hop=False`` skips the last hop's dedup:
     ``input_nodes`` becomes ``[frontier | sampled neighbours]`` and each
     edge's src is its own slot, so the model's source gather is a slice;
@@ -331,12 +512,18 @@ def multi_layer_sample(
                                                           valid)
             if with_out_degrees:
                 counts = _slot_out_degrees(S, valid)
+        elif with_out_degrees:
+            unique, num_unique, src_local, ovf, counts = unique_and_remap(
+                cur, num_cur, nbrs, plan.num_unique_cap[hop], with_counts=True)
+            overflowed = overflowed | ovf
         else:
-            unique, num_unique, src_local, ovf, *rest = unique_and_remap(
-                cur, num_cur, nbrs, plan.num_unique_cap[hop],
-                with_counts=with_out_degrees,
-            )
-            counts = rest[0] if rest else None
+            if graph.num_node <= DIRECT_REMAP_MAX_NODES:
+                unique, num_unique, src_local, ovf = unique_and_remap_direct(
+                    cur, num_cur, nbrs, plan.num_unique_cap[hop],
+                    graph.num_node)
+            else:
+                unique, num_unique, src_local, ovf = unique_and_remap(
+                    cur, num_cur, nbrs, plan.num_unique_cap[hop])
             overflowed = overflowed | ovf
 
         dst_local = torch.arange(

@@ -8,6 +8,7 @@ Tolerances: plans, per-step edges and overflow flags exact; loss within
 1e-4 over three Adam steps (float32 sums in another order); evaluation
 accuracy within one test row."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ import torch
 
 from fgnn_tpu.config import RunConfig, SampleType
 from fgnn_tpu.data import make_synthetic_dataset
+from fgnn_tpu.data.synthetic import build_alias_tables
 from fgnn_tpu.engine import OneChipEngine as JEngine
 from fgnn_tpu_torch.engine import OneChipEngine
 from fgnn_tpu_torch.models.convert import params_from_flax
@@ -45,19 +47,20 @@ def jax_draws(cfg):
     """The reference's per-hop uniforms for the engine's sampler."""
     if cfg.sample_type == SampleType.RANDOM_WALK:
         return jax_walk_uniforms
-    return jax_uniforms
+    return functools.partial(jax_uniforms, sample_type=cfg.sample_type)
 
 
 def engines(ds, cfg):
     """The reference engine and the port's, from the same parameters, with
     the same plan and the reference's last-hop rule: only GCN dedups its
-    last hop; only the uniform samplers' no-dedup last hop is tiered."""
+    last hop; only the no-dedup last hop of the uniform samplers without
+    replacement is tiered."""
     jeng = JEngine(cfg, ds)
     teng = port_engine(cfg, ds)
     assert dataclasses.asdict(teng.plan) == dataclasses.asdict(jeng.plan)
     gcn = cfg.model == "gcn"
-    walk = cfg.sample_type == SampleType.RANDOM_WALK
-    assert (teng.plan.tier_layout is None) == (gcn or walk)
+    uniform = cfg.sample_type in (SampleType.KHOP0, SampleType.KHOP2)
+    assert (teng.plan.tier_layout is None) == (gcn or not uniform)
     assert teng.dedup_last_hop == teng.with_out_degrees == gcn
     teng.model.load_state_dict(params_from_flax(jeng.state.params))
     return jeng, teng
@@ -158,12 +161,30 @@ def test_feature_table_over_budget_raises(ds):
     assert eng.feat_on_device and eng.cache is None
 
 
-@pytest.mark.parametrize("kw", [{"sample_type": SampleType.KHOP1},
-                                {"sample_type": SampleType.WEIGHTED_KHOP_PREFIX},
-                                {"sample_type": SampleType.WEIGHTED_KHOP}])
-def test_unported_configurations_raise(ds, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine(CFG.replace(**kw), ds)
+@pytest.fixture(scope="module")
+def wds():
+    """The engine tests' graph with the weighted samplers' tables."""
+    ds = make_synthetic_dataset(num_node=2000, avg_degree=8, feat_dim=32,
+                                num_class=8, train_frac=0.5, seed=42)
+    build_alias_tables(ds, seed=0)
+    return ds
+
+
+@pytest.mark.parametrize("sample_type", [
+    SampleType.KHOP1, SampleType.WEIGHTED_KHOP,
+    SampleType.WEIGHTED_KHOP_PREFIX, SampleType.WEIGHTED_KHOP_HASH_DEDUP],
+    ids=lambda st: st.value)
+def test_other_samplers_engine_steps_match_reference(wds, sample_type):
+    """KHOP1 and the weighted samplers: the plain no-dedup last hop, caps
+    calibrated as the reference does (with replacement for KHOP1)."""
+    steps_match_reference(wds, CFG.replace(sample_type=sample_type))
+
+
+def test_weighted_sampler_without_tables_raises(ds):
+    """The reference fails inside its sampler; the port names the missing
+    tables when the engine is built."""
+    with pytest.raises(ValueError, match="build_alias_tables"):
+        port_engine(CFG.replace(sample_type=SampleType.WEIGHTED_KHOP), ds)
 
 
 def test_empty_feat_dataset_gathers_modulo_the_table():
@@ -175,3 +196,23 @@ def test_empty_feat_dataset_gathers_modulo_the_table():
     assert ds.empty_feat
     r = port_engine(CFG, ds).run_epoch(0)
     assert np.isfinite(r["loss"]) and r["sampled_edges"] > 0
+
+
+def test_empty_feat_evaluate_reads_modulo_the_table():
+    """evaluate() on an empty-feat dataset reads the fake table modulo its
+    rows, as training does (the reference's evaluate reads it with
+    device_gather and gets NaN rows past its end): finite, and equal to
+    evaluate() from the same parameters over a full table whose row i is
+    the fake table's row i % 100."""
+    ds = make_synthetic_dataset(num_node=2000, avg_degree=8, feat_dim=16,
+                                num_class=4, train_frac=0.2, seed=1,
+                                empty_feat_rows=100)
+    full = dataclasses.replace(
+        ds, feat=np.asarray(ds.feat)[np.arange(ds.num_node) % 100],
+        empty_feat=False)
+    mock, real = port_engine(CFG, ds), port_engine(CFG, full)
+    mock.run_epoch(0)
+    real.model.load_state_dict(mock.model.state_dict())
+    acc = mock.evaluate()
+    assert np.isfinite(acc) and 0.0 < acc < 1.0
+    assert acc == real.evaluate()

@@ -49,6 +49,20 @@ def test_calibrate_and_plan_identical(ds, fanouts):
         assert dataclasses_equal(jp, tp), (jp, tp)
 
 
+@pytest.mark.parametrize("fanouts", [(25, 10), (5, 10, 15)])
+def test_calibrate_with_replacement_identical(ds, fanouts):
+    """KHOP1's calibration (with replacement) and its plan."""
+    args = (np.asarray(ds.indptr), np.asarray(ds.indices),
+            np.asarray(ds.train_set), 256, list(reversed(fanouts)))
+    jcaps = jref.calibrate_caps(*args, seed=3, replace=True)
+    tcaps = tref.calibrate_caps(*args, seed=3, replace=True)
+    assert jcaps == tcaps
+    assert jcaps != jref.calibrate_caps(*args, seed=3)
+    assert dataclasses_equal(
+        jpadding.make_plan(256, fanouts, ds.num_node, unique_caps=jcaps),
+        tpadding.make_plan(256, fanouts, ds.num_node, unique_caps=tcaps))
+
+
 def dataclasses_equal(a, b):
     import dataclasses
 

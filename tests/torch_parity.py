@@ -72,9 +72,37 @@ def batch_to_torch(batch):
     )
 
 
-def jax_uniforms(key, shapes):
-    """The reference's per-hop draws: uniform(fold_in(key, hop), shape)."""
-    return [to_torch(jax.random.uniform(jax.random.fold_in(key, hop), s))
+GUMBEL_MAX_DEG = 128
+
+
+def jax_hop_uniforms(key, shape, sample_type=None):
+    """The draws of the reference's ``sample_layer(key, ...)`` as the port's
+    one ``[n, width]`` tensor of column blocks: the alias sampler's
+    ``split(key)`` draws ``[u1 | u2]``; the hash-dedup sampler's
+    ``k_g, k_s = split(key)`` Gumbel draw, then its alias draws from
+    ``split(k_s)``, ``[gumbel | u1 | u2]``; one draw for the others.
+    ``sample_type`` is either package's enum, or None."""
+    st = getattr(sample_type, "value", sample_type)
+    n, width = shape
+    if st == "weighted_khop":
+        k1, k2 = jax.random.split(key)
+        f = width // 2
+        return jnp.concatenate([jax.random.uniform(k1, (n, f)),
+                                jax.random.uniform(k2, (n, f))], axis=1)
+    if st == "weighted_khop_hash_dedup":
+        k_g, k_s = jax.random.split(key)
+        return jnp.concatenate(
+            [jax.random.uniform(k_g, (n, GUMBEL_MAX_DEG)),
+             jax_hop_uniforms(k_s, (n, width - GUMBEL_MAX_DEG),
+                              "weighted_khop")], axis=1)
+    return jax.random.uniform(key, shape)
+
+
+def jax_uniforms(key, shapes, sample_type=None):
+    """The reference's per-hop draws: hop h samples with fold_in(key, h)
+    (:func:`jax_hop_uniforms`)."""
+    return [to_torch(jax_hop_uniforms(jax.random.fold_in(key, hop), s,
+                                      sample_type))
             for hop, s in enumerate(shapes)]
 
 
