@@ -87,8 +87,29 @@ Phases, none of which catches a failure (any failure exits non-zero):
      hidden 256) on the 1M-node graph: two epochs, eight synced steps stage
      by stage, a third epoch under torch.profiler; one epoch each at
      PRESAMPLE 10% and of PinSAGE 3 x 5 (W=4, L=3).
+ 20. the entry points. Small input, on the card: an epoch at profile
+     level 3 with the trace, node access and the sanity checker on equals
+     a level-1 epoch (losses within 1e-5, edges equal; the trace lanes also
+     show as torch.profiler ranges); a session-driven epoch equals
+     run_epoch; a checkpoint saved after epoch 0 and restored into a new
+     engine resumes at epoch 1 with the saved parameters and matches the
+     uninterrupted epoch 1 within 1e-5. Then the app
+     (``python -m fgnn_tpu_torch.examples.train_gnn``) as a subprocess at
+     the bench configuration (GraphSAGE arch1 [25, 10], batch 8000, hidden
+     256, 1M nodes): three epochs at profile level 1, two at level 3 with
+     the trace and node access, each parsed with the runner's parse_log:
+     the keys, non-zero L2/L3 items at level 3, the trace's L0-L2 lanes,
+     the row gather's launches (three a step), the same epoch-0 loss
+     within 1e-4; then the app's level-1 configuration driven through
+     OneChipEngine in this process, its steady epoch beside the app's;
+ 21. the Table-1 ablation (``python -m fgnn_tpu_torch.exp.table1``) at its
+     defaults with two epochs, one row at a time: five rows, each rc 0
+     with a finite epoch_time and non-zero stage columns.
+The app processes read the bytecode this process compiles
+(``fgnn_tpu_torch/_build/pycache``): without it each one compiles torch's
+sources again on a machine whose packages hold none.
 The 1M-node graph is built once and shared by 5, 9, 11, 13, 15, 16, 17 and
-19. Prints
+19 (the app builds its own). Prints
 a JSON line of kernel results (each with its bound on this card and the
 time of the one PyTorch call that computes the same function), then as its
 last line ``{"ok": true, "device": {...}}``.
@@ -1425,7 +1446,274 @@ def arch0_phase(dev, card, ds):
     return total
 
 
+# --- phases 20-21: the entry points and Table 1 ----------------------------
+
+OBSERVE_ENV = ("FGNN_TPU_DUMP_TRACE", "FGNN_TPU_LOG_NODE_ACCESS")
+# the trace lanes an observed level-3 step of the device-resident table emits
+STEP_LANES = ("kL0Event_Train_Step", "kL1Event_Sample", "kL1Event_Copy",
+              "kL1Event_Train", "kL2Event_Sample_Shuffle",
+              "kL2Event_Copy_Extract", "kL2Event_Sample_Core",
+              "kL2Event_Sample_IdRemap")
+APP_ARGS = ["--arch", "arch1", "--model", "graphsage", "--fanout", "25", "10",
+            "--batch-size", "8000", "--num-hidden", "256",
+            "--synthetic-nodes", "1000000", "--synthetic-train-frac", "0.25"]
+APP_KEYS = ("init_time", "epoch_time", "epoch_time:min", "num_step",
+            "sample_time", "copy_time", "extract_time", "train_time",
+            "init:presample", "init:load_dataset", "init:copy",
+            "init:build_cache", "first_epoch_loss", "launches:gather_rows")
+APP_L23_ITEMS = ("L2_shuffle_time", "L2_core_sample_time", "L2_id_remap_time",
+                 "L2_id_copy_time", "L2_extract_time", "L3_khop_sample_coo_time",
+                 "L3_remap_unique_time", "L3_remap_map_edge_time")
+STAGE_COLUMNS = ("sample_time", "copy_time", "extract_time", "train_time")
+
+
+def observe_small_phase(dev):
+    """Phase 20's small input (see the module docstring)."""
+    import tempfile
+
+    import torch
+    import fgnn_tpu_torch.session as sam
+    from fgnn_tpu_torch.engine import OneChipEngine
+    from fgnn_tpu_torch.train.loop import train_step
+    from fgnn_tpu_torch.utils.profiler import Profiler
+
+    ds = small_dataset()
+    cfg = small_config("graphsage", fanout=(10, 3), dropout=0.5)
+
+    # observing an epoch does not change it
+    Profiler.reset()
+    (plain,) = OneChipEngine(cfg, ds, dev).run_epochs(0, 1)
+    for k in OBSERVE_ENV:
+        os.environ[k] = "1"
+    Profiler.reset()
+    try:
+        eng = OneChipEngine(cfg.replace(profile_level=3, sanity_check=True),
+                            ds, dev)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as tp:
+            (obs,) = eng.run_epochs(0, 1)
+        ranges = {e.name for e in tp.events()}
+        prof = Profiler.get()
+        lanes = prof.lane_summary()
+        touched = int((prof.node_access_frequency() > 0).sum())
+    finally:
+        for k in OBSERVE_ENV:
+            os.environ.pop(k, None)
+        Profiler.reset()
+    check(obs["sampled_edges"] == plain["sampled_edges"],
+          f"observed edges {obs['sampled_edges']} != {plain['sampled_edges']}")
+    check(abs(obs["loss"] - plain["loss"]) < 1e-5 and
+          abs(obs["acc"] - plain["acc"]) < 1e-5,
+          f"observed epoch {obs} != plain {plain}")
+    missing = [n for n in STEP_LANES if n not in lanes or n not in ranges]
+    check(not missing, f"lanes missing from the trace or torch.profiler: "
+          f"{missing}")
+    check(touched > 0, "node access counted nothing")
+    print(f"  level 3 + trace + node access + checker: loss {obs['loss']:.6f} "
+          f"(level 1 {plain['loss']:.6f}), edges {obs['sampled_edges']} equal; "
+          f"{len(lanes)} lanes, {touched} nodes touched")
+
+    # a session-driven epoch equals run_epoch
+    (ref,) = OneChipEngine(cfg, ds, dev).run_epochs(0, 1)
+    sam._reset_for_tests()
+    sam.config({**{f: getattr(cfg, f) for f in (
+        "fanout", "batch_size", "num_hidden", "dropout", "lr", "seed",
+        "compute_dtype")}, "model": "graphsage", "arch": 1,
+        "sample_type": cfg.sample_type.value})
+    sam._session.ds = ds
+    sam.sample_init(0, dev)
+    eng = sam._session.engine
+    losses = []
+    for _ in range(sam.steps_per_epoch()):
+        sam.sample_once()
+        key = sam.get_next_batch()
+        _, feats, labels = sam.get_blocks(key, 2)
+        loss, _ = train_step(eng.model, eng.optimizer, sam.get_batch(key),
+                             feats, labels, eng.dst_caps, cfg.batch_size,
+                             generator=eng.dropout_gen)
+        losses.append(loss)
+        sam.release_batch(key)
+    s_loss = float(torch.stack(losses).mean())
+    sam.shutdown()
+    check(abs(s_loss - ref["loss"]) < 1e-5,
+          f"session epoch loss {s_loss} != run_epoch's {ref['loss']}")
+    print(f"  session-driven epoch: loss {s_loss:.6f}, run_epoch "
+          f"{ref['loss']:.6f}")
+
+    # checkpoint after epoch 0, restored into a new engine
+    with tempfile.TemporaryDirectory() as d:
+        ccfg = cfg.replace(ckpt_dir=d, ckpt_every=1)
+        a = OneChipEngine(ccfg, ds, dev)
+        check(a.start_epoch == 0, f"fresh start_epoch {a.start_epoch}")
+        a.run_epoch(0)
+        saved = {k: v.clone() for k, v in a.model.state_dict().items()}
+        b = OneChipEngine(ccfg, ds, dev)
+        check(b.start_epoch == 1, f"resumed start_epoch {b.start_epoch}")
+        for k, v in b.model.state_dict().items():
+            check(torch.equal(v, saved[k]), f"restored {k} != saved")
+        ra, rb = a.run_epoch(1), b.run_epoch(1)
+    check(abs(ra["loss"] - rb["loss"]) < 1e-5
+          and ra["sampled_edges"] == rb["sampled_edges"],
+          f"resumed epoch 1 {rb} != uninterrupted {ra}")
+    print(f"  checkpoint: resumed at epoch 1, parameters equal the saved "
+          f"ones; epoch 1 loss {rb['loss']:.6f} (uninterrupted "
+          f"{ra['loss']:.6f})")
+
+
+def app_phase(card):
+    """Phase 20's app runs (see the module docstring). Returns the row
+    gather's launches over them."""
+    from fgnn_tpu_torch.exp.runner import run_app
+
+    out = os.path.join(REPO, "chiprun_out", "smoke_app")
+    runs = {}
+    for label, level, epochs, env in (
+            ("level1", 1, 3, {}),
+            ("level3", 3, 2, {k: "1" for k in OBSERVE_ENV})):
+        t0 = time.perf_counter()
+        r = run_app(APP_ARGS + ["--profile-level", str(level),
+                                "--num-epoch", str(epochs)], out, label,
+                    env=env, timeout=600)
+        check(r.returncode == 0, f"app {label}: rc {r.returncode}, see "
+              f"{r.log_path}")
+        v = r.values
+        missing = [k for k in APP_KEYS if k not in v]
+        check(not missing, f"app {label}: keys missing {missing}")
+        steps = int(v["num_step"]) * epochs
+        launches = int(v["launches:gather_rows"])
+        check(launches == 3 * steps, f"app {label}: {launches} gather_rows "
+              f"launches for {steps} steps")
+        print(f"  app {label} ({epochs} epochs, {time.perf_counter() - t0:.1f} "
+              f"s with its start): epoch_time {v['epoch_time']} s (min "
+              f"{v['epoch_time:min']}), init_time {v['init_time']} s, stages "
+              + ", ".join(f"{k} {v[k]}" for k in STAGE_COLUMNS)
+              + f", first epoch loss {v['first_epoch_loss']}, gather_rows "
+              f"launches {launches} ({card})")
+        runs[label] = (v, launches)
+    v3 = runs["level3"][0]
+    zero = [k for k in APP_L23_ITEMS if float(v3.get(k, 0.0)) <= 0.0]
+    check(not zero, f"app level 3: L2/L3 items zero or missing: {zero}")
+    print("  app level 3 step items (s): " + ", ".join(
+        f"{k} {v3[k]}" for k in APP_L23_ITEMS) + f" ({card})")
+    with open(os.path.join(out, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    lanes = {e["name"] for e in events if e.get("ph") == "X"}
+    missing = [n for n in STEP_LANES if n not in lanes]
+    check(not missing, f"app trace: lanes missing {missing}")
+    check(os.path.getsize(os.path.join(out, "node_ranking.bin")) > 0,
+          "app: node_ranking.bin is empty")
+    l1 = float(runs["level1"][0]["first_epoch_loss"])
+    l3 = float(v3["first_epoch_loss"])
+    check(abs(l1 - l3) <= 1e-4, f"app epoch-0 loss level 1 {l1} != level 3 "
+          f"{l3}")
+    print(f"  app trace: {len(events)} events on {len(lanes)} lanes; epoch-0 "
+          f"loss level 1 {l1}, level 3 {l3}")
+    engine_driven(runs["level1"][0], v3, card)
+    return sum(n for _, n in runs.values())
+
+
+def engine_driven(app, app3, card):
+    """The app's level-1 configuration driven here through OneChipEngine,
+    from the app's own argument parser and dataset loader: its steady epoch
+    beside the app's, and the same epoch-0 loss; then eight steps stage by
+    stage with a sync after each, beside the app's level-3 stage items of a
+    step. This process ran epochs under torch.profiler's CUDA activity
+    before (phases 15, 17, 19), which leaves later epochs slower than a
+    fresh process runs them (``python -m
+    fgnn_tpu_torch.tools.profiler_residue``). These launches are not the
+    app's and are not counted."""
+    import argparse
+    import statistics
+
+    import torch
+    from fgnn_tpu_torch.engine import OneChipEngine, device_sync
+    from fgnn_tpu_torch.examples import common_config
+    from fgnn_tpu_torch.utils.profiler import Profiler
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--model", default="graphsage")
+    common_config.add_common_arguments(p)
+    args = p.parse_args(APP_ARGS + ["--num-epoch", "3"])
+    Profiler.reset()
+    cfg = common_config.build_run_config(
+        args, args.model, common_config.MODEL_SAMPLE_TYPE[args.model])
+    eng = OneChipEngine(cfg, common_config.load_app_dataset(args),
+                        torch.device(args.device))
+    r = [eng.run_epoch(e) for e in range(3)]
+    steady = sum(x["epoch_time"] for x in r[1:]) / 2
+    check(abs(r[0]["loss"] - float(app["first_epoch_loss"])) <= 1e-4,
+          f"engine-driven epoch-0 loss {r[0]['loss']} != the app's "
+          f"{app['first_epoch_loss']}")
+    print(f"  the app's configuration driven through OneChipEngine here: "
+          f"epochs 1-2 {r[1]['epoch_time']:.4f} / {r[2]['epoch_time']:.4f} s, "
+          f"mean {steady:.4f} s; the app's {app['epoch_time']} s "
+          f"({float(app['epoch_time']) / steady - 1:+.1%}) ({card})")
+    ms = {"sample": [], "extract": [], "train": []}
+    for _, (seeds, n, _) in zip(range(8), eng.shuffler.batches(len(r))):
+        device_sync(eng.device)
+        t0 = time.perf_counter()
+        batch = eng.sample(torch.as_tensor(seeds, device=eng.device), n,
+                           eng.sample_gen, eng.dedup_last_hop)
+        device_sync(eng.device)
+        t1 = time.perf_counter()
+        feats = eng.features(batch)
+        device_sync(eng.device)
+        t2 = time.perf_counter()
+        eng.train_on(batch, feats)
+        device_sync(eng.device)
+        t3 = time.perf_counter()
+        for k, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
+            ms[k].append(1e3 * dt)
+    steps = int(app3["num_step"])
+    items = {"sample": 1e3 * float(app3["sample_time"]) / steps,
+             "extract": 1e3 * float(app3["L2_extract_time"]),
+             "train": 1e3 * float(app3["train_time"]) / steps}
+    print("  synced stages of a step here, median of 8 (ms): " + ", ".join(
+        f"{k} {statistics.median(v):.3f}" for k, v in ms.items())
+        + "; the app's level-3 items of a step (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in items.items()) + f" ({card})")
+    Profiler.reset()
+
+
+def table1_phase(card):
+    """Phase 21 (see the module docstring). Returns the row gather's
+    launches over its runs."""
+    from fgnn_tpu_torch.exp import table1
+
+    out = os.path.join(REPO, "chiprun_out", "smoke_table1")
+    rc = table1.main(["--num-epoch", "2", "--out-dir", out])
+    check(rc == 0, f"table1: rc {rc}")
+    with open(os.path.join(out, "table1.json")) as f:
+        rows = json.load(f)["results"]
+    check(len(rows) == 5, f"table1: {len(rows)} rows")
+    total = 0
+    for r in rows:
+        v, name = r["values"], r["config"]["system"]
+        check(r["rc"] == 0, f"table1 {name}: rc {r['rc']}")
+        check(math.isfinite(float(v["epoch_time"])),
+              f"table1 {name}: epoch_time {v['epoch_time']}")
+        zero = [k for k in STAGE_COLUMNS if float(v[k]) <= 0.0]
+        check(not zero, f"table1 {name}: zero stage columns {zero}")
+        launches = int(v["launches:gather_rows"])
+        check(launches > 0, f"table1 {name}: no gather_rows launch")
+        total += launches
+        print(f"  {name}: epoch_time {v['epoch_time']} s (level 2: "
+              f"{v['epoch_time_l2']} s); " + ", ".join(
+                  f"{k} {v[k]}" for k in STAGE_COLUMNS)
+              + f"; gather_rows launches {launches} over "
+              f"{int(v['num_step']) * 2} steps ({card})")
+    return total
+
+
 def main() -> int:
+    # The app processes of phases 20-21 read the bytecode this process
+    # compiles: where the installed packages carry none and cannot take it,
+    # each process would compile torch's sources again.
+    cache = os.path.join(REPO, "fgnn_tpu_torch", "_build", "pycache")
+    sys.pycache_prefix = cache
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     import torch
 
     if not torch.cuda.is_available():
@@ -1437,7 +1725,7 @@ def main() -> int:
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/19] device")
+    print("[1/21] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -1449,74 +1737,89 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/19] build")
+    print("[2/21] build")
     kernels = ("gather_rows", "stream_add_one")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/19] row gather against plain version")
+    print("[3/21] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/19] small input, GraphSAGE: card against CPU")
+    print("[4/21] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/19] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/21] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
     sage_launches = main_path_phase(dev, card, ds)
 
-    print("[6/19] streaming pass against plain version")
+    print("[6/21] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/19] gather campaign: stream and kernel phases")
+    print("[7/21] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/19] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/21] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/19] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    print("[9/21] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
     gcn_launches = gcn_phase(dev, card, ds)
 
-    print("[10/19] small input, PinSAGE: card against CPU")
+    print("[10/21] small input, PinSAGE: card against CPU")
     small_input_phase(dev, model="pinsage",
                       sample_type=SampleType.RANDOM_WALK)
 
-    print("[11/19] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+    print("[11/21] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
           "evaluate")
     pinsage_launches = pinsage_phase(dev, card, ds)
 
-    print("[12/19] small input, GAT: card against CPU, eval-mode logits and "
+    print("[12/21] small input, GAT: card against CPU, eval-mode logits and "
           "gradients")
     gat_small_phase(dev)
 
-    print("[13/19] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+    print("[13/21] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
           "evaluate")
     gat_launches = gat_phase(dev, card, ds)
 
-    print("[14/19] small input, host-resident table, PRESAMPLE and "
+    print("[14/21] small input, host-resident table, PRESAMPLE and "
           "DYNAMIC_CACHE: card against CPU")
     cache_small_phase(dev)
 
-    print("[15/19] GraphSAGE main path, feature table in host memory: hit "
+    print("[15/21] GraphSAGE main path, feature table in host memory: hit "
           "rates, pipelined cache epochs, host path, dynamic cache")
     cache_launches = cache_phase(dev, card, ds)
 
-    print("[16/19] small input, KHOP1 and the weighted samplers: card "
+    print("[16/21] small input, KHOP1 and the weighted samplers: card "
           "against CPU; the direct-index dedup at the main path's shapes")
     other_samplers_small_phase(dev)
     remap_phase(dev, card, ds)
 
-    print("[17/19] KHOP1 and the weighted samplers at full width, 1M-node "
+    print("[17/21] KHOP1 and the weighted samplers at full width, 1M-node "
           "graph")
     other_launches = other_samplers_phase(dev, card, ds)
 
-    print("[18/19] small input, arch0 (host sampling): card against CPU")
+    print("[18/21] small input, arch0 (host sampling): card against CPU")
     arch0_small_phase(dev)
 
-    print("[19/19] arch0 at the bench configuration, 1M-node graph")
+    print("[19/21] arch0 at the bench configuration, 1M-node graph")
     arch0_launches = arch0_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
+    del ds
+
+    t20 = time.perf_counter()
+    print("[20/21] entry points: observed epoch, session, checkpoint (small "
+          "input); the app at the bench configuration")
+    observe_small_phase(dev)
+    app_launches = app_phase(card)
+    print(f"  phase 20: {time.perf_counter() - t20:.1f} s")
+
+    t21 = time.perf_counter()
+    print("[21/21] Table 1 through the port's app, 2 epochs a row")
+    table1_launches = table1_phase(card)
+    print(f"  phase 21: {time.perf_counter() - t21:.1f} s; phases 20-21 "
+          f"{time.perf_counter() - t20:.1f} s; smoke wall time "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     best = min(s_timing, key=lambda c: s_timing[c]["ms"])
     print(f"  stream_add_one times below: chunk {best}, the fastest; "
@@ -1528,7 +1831,7 @@ def main() -> int:
         replaces="fgnn_tpu/ops/pallas_gather2.py:131",
         launches=(sage_launches + gcn_launches + pinsage_launches
                   + gat_launches + cache_launches + other_launches
-                  + arch0_launches),
+                  + arch0_launches + app_launches + table1_launches),
         max_abs_err=max_err,
         bound_by="bytes",
         **timing["feature gather"],

@@ -19,6 +19,7 @@ compile cache small; the port has no compile cache and uploads exactly
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -28,6 +29,7 @@ import torch
 from ..ops.extract import HostFeatures, host_gather
 from ..ops.gather import gather_rows
 from ..utils import Timer, get_logger
+from ..utils.profiler import Profiler
 
 log = get_logger(__name__)
 
@@ -140,6 +142,7 @@ class FeatureCache:
             hot = torch.zeros((1, feat_host.shape[1]))
         # rounded to the cache dtype on the host, to nearest even
         self.cache_data = hot.to(self.dtype).to(dev)
+        Profiler.get().log_init("init_build_cache", t.passed())
         log.info(
             "feature cache: %d/%d nodes (%.1f%%) = %.1f MB on %s in %.2fs",
             self.num_cache, num_node, 100 * cache_percentage,
@@ -168,12 +171,24 @@ class FeatureCache:
         return host_gather(self.host.table, miss_ids, self.host.mod,
                            n_real=num_miss).to(self.dtype)
 
-    def upload_miss(self, index: MissCacheIndex) -> Tuple[torch.Tensor, int, int]:
+    def upload_miss(self, index: MissCacheIndex, trace_key: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, int, int]:
         """Copy the miss ids to the host, gather exactly ``num_miss`` rows
         there and upload them; the current stream waits for the upload.
-        Returns ``(rows on the device, num_miss, num_hit)``."""
-        f = self.host.fetch(index.miss_ids,
-                            torch.stack([index.num_miss, index.num_hit]))
-        rows, (num_miss, num_hit), ready = self.host.load(f, self.dtype)
-        self.host.ready(ready)
+        Returns ``(rows on the device, num_miss, num_hit)``. With
+        ``trace_key`` and a trace on, the host gather (the ids' copy
+        included) and the upload get the reference's ExtractMiss and
+        CopyMiss lanes; the upload's span ends once it is done."""
+        prof = Profiler.get()
+        tracing = trace_key is not None and prof.trace_enabled
+        with (prof.trace_scope(trace_key, "kL3Event_Copy_CacheCopy_ExtractMiss")
+              if tracing else contextlib.nullcontext()):
+            f = self.host.fetch(index.miss_ids,
+                                torch.stack([index.num_miss, index.num_hit]))
+            rows, (num_miss, num_hit), ready = self.host.load(f, self.dtype)
+        with (prof.trace_scope(trace_key, "kL3Event_Copy_CacheCopy_CopyMiss")
+              if tracing else contextlib.nullcontext()):
+            self.host.ready(ready)
+            if tracing and ready is not None:
+                ready.synchronize()
         return rows, num_miss, num_hit

@@ -26,6 +26,7 @@ import torch
 
 from ..parallel.shuffler import EpochShuffler
 from ..utils import Timer, get_logger
+from ..utils.profiler import Profiler
 
 log = get_logger(__name__)
 
@@ -77,6 +78,7 @@ def presample_ranking(
         freq.index_add_(0, idx, torch.ones_like(ids))
     freq_np = freq[:num_node].cpu().numpy()
     ranking = _rank(freq_np)
+    Profiler.get().log_init("init_presample", t.passed())
     log.info("presample: %d epochs in %.2fs; top node freq=%d",
              presample_epoch, t.passed(), int(freq_np.max(initial=0)))
     return ranking
@@ -115,6 +117,7 @@ def presample_static_ranking(
                     + np.arange(total, dtype=np.int64) - base_off)
             np.add.at(freq, indices[flat], 1)
     ranking = _rank(freq)
+    Profiler.get().log_init("init_presample", t.passed())
     log.info("presample-static: %d epochs in %.2fs", presample_epoch,
              t.passed())
     return ranking

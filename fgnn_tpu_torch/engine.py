@@ -18,15 +18,35 @@ memory (``feat_on_device``).
   cache. With ``cfg.pipeline`` (the default) the host gather and upload of
   batch k+1 run on a worker thread and a copy stream while batch k trains.
 
+Observing a run does not change it. The profiler
+(:mod:`fgnn_tpu_torch.utils.profiler`) gets the reference's items: init
+times, the step and epoch items of each path at ``cfg.profile_level``
+(``FGNN_TPU_PROFILE_LEVEL`` raises the level the profiler writes at, not
+the path, as in the reference), trace lanes (``FGNN_TPU_DUMP_TRACE``) and
+node access (``FGNN_TPU_LOG_NODE_ACCESS``).
+The path follows the reference's gates: at level 2 or higher, with a
+trace, node access or the sanity checker (``cfg.sanity_check`` or
+``FGNN_TPU_SANITY_CHECK``) the epoch runs the stepwise loop, which syncs the
+device at each stage boundary (the reference's ``force_done``). A
+host-resident table without the pipeline runs that loop at every level,
+without the syncs while nothing observes. Its stages are those of
+:meth:`OneChipEngine.step`: one feature path for both. Level 3 adds a
+measurement pass over each step's sampling on a snapshot of the sampler's
+generator, so training draws what it would have drawn. ``cfg.ckpt_dir``
+restores the latest checkpoint on construction (``start_epoch``), and
+:meth:`run_epochs` saves every ``cfg.ckpt_every`` epochs: the model, the
+optimizer and both generators' states.
+
 Ported: GraphSAGE, GCN and GAT over every khop sampler (KHOP0/KHOP2,
 KHOP1, WEIGHTED_KHOP, WEIGHTED_KHOP_PREFIX, WEIGHTED_KHOP_HASH_DEDUP) and
 PinSAGE (RANDOM_WALK), the device-resident and host-resident paths, the
-static and dynamic caches, and evaluation. Not yet: checkpoints, sanity
-checks and profiling levels (ROADMAP.md). Host sampling (arch0) is
-:mod:`fgnn_tpu_torch.host_engine`.
+static and dynamic caches, evaluation, the profiler, the checker and
+checkpoints. Host sampling (arch0) is :mod:`fgnn_tpu_torch.host_engine`.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence, Union
@@ -38,19 +58,23 @@ from .cache.dynamic import DynamicFeatureCache
 from .cache.manager import FeatureCache
 from .cache.policy import build_ranking
 from .cache.presample import RandFn, presample_ranking, presample_static_ranking
-from .config import CachePolicy, RunConfig, SampleType
+from .config import CachePolicy, RunConfig, SampleType, env_int
 from .data.schema import Dataset
 from .models.gnn import build_model
 from .ops.extract import (HostFeatures, device_gather, host_table,
                           label_gather, mock_gather)
 from .ops.padding import make_plan
 from .ops.random_walk import random_walk_topk, walk_uniform_shapes
+from .ops.hashtable import lookup_local_ids, unique_with_seeds
 from .ops.reference_impl import calibrate_caps
 from .ops.sampling import (WEIGHT_TABLES, CSRGraph, check_weight_tables,
-                           multi_layer_sample, uniform_shapes)
+                           multi_layer_sample, sample_layer, uniform_shapes)
+from .ops.sanity import make_checker
 from .parallel.shuffler import EpochShuffler
+from .train.checkpoint import CheckpointManager
 from .train.loop import eval_step, make_optimizer, train_step
-from .utils import get_logger
+from .utils import Timer, get_logger
+from .utils.profiler import Profiler
 
 log = get_logger(__name__)
 
@@ -63,15 +87,43 @@ EVAL_SEED_OFFSET = 12345
 FEAT_MEMORY_SHARE = 0.5
 
 
+def device_sync(device: torch.device) -> None:
+    """Wait for the device's queued work (the reference's ``force_done``);
+    nothing to wait for on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclasses.dataclass
+class Span:
+    seconds: float = 0.0
+
+
+@contextlib.contextmanager
+def stage(device: torch.device, key: int, lane: Optional[str], sync: bool):
+    """One stage of a step: its trace lane (and torch.profiler range) while
+    a trace is on and the step has a ``key``, and its host-clock seconds in
+    the yielded :class:`Span`, taken after a device sync when ``sync``."""
+    span = Span()
+    with (Profiler.get().span(key, lane) if lane and key is not None
+          else contextlib.nullcontext()):
+        t = Timer()
+        yield span
+        if sync:
+            device_sync(device)
+        span.seconds = t.passed()
+
+
 class OneChipEngine:
     def __init__(self, cfg: RunConfig, ds: Dataset,
                  device: Union[str, torch.device],
                  feat_budget: Optional[int] = None,
                  presample_rand: Optional[RandFn] = None):
         """``feat_budget``: bytes the feature table may take on the device;
-        by default ``FEAT_MEMORY_SHARE`` of a CUDA device's memory (no limit
-        on the CPU). A table over it stays in host memory. ``presample_rand
-        (epoch, step)`` injects the presample's per-hop uniforms."""
+        by default ``FGNN_TPU_FEAT_HBM_BUDGET``, else ``FEAT_MEMORY_SHARE``
+        of a CUDA device's memory (no limit on the CPU). A table over it
+        stays in host memory. ``presample_rand(epoch, step)`` injects the
+        presample's per-hop uniforms."""
         cfg.validate()
         # a weighted sampler without its tables fails here, not in a step
         check_weight_tables(ds, cfg.sample_type)
@@ -79,6 +131,11 @@ class OneChipEngine:
         self.ds = ds
         self.device = torch.device(device)
         dev = self.device
+        prof = Profiler.get()
+        # cfg-requested detail unlocks the matching writers even when
+        # FGNN_TPU_PROFILE_LEVEL wasn't exported (library users)
+        prof.level = max(prof.level, cfg.profile_level)
+        t_init = Timer()
         self.compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                               else None)
         # the model first: an unported model fails before any upload
@@ -96,6 +153,7 @@ class OneChipEngine:
         # go up by the reference's rule (fgnn_tpu/engine.py:88-112): the
         # alias tables for WEIGHTED_KHOP and HASH_DEDUP, the prefix table for
         # PREFIX and HASH_DEDUP.
+        t_copy = Timer()   # device placement (SampleDataCopy analog)
         indptr = np.asarray(ds.indptr)
         indices = np.asarray(ds.indices)
         tables = {
@@ -109,10 +167,16 @@ class OneChipEngine:
             indices=host_table(np.asarray(indices, np.int32)).to(dev),
             **tables,
         )
+        device_sync(dev)
+        copy_s = t_copy.passed()
 
         # --- feature placement: the device if the table fits ---------------
         feat_dtype = self.compute_dtype or torch.float32
         feat_bytes = ds.feat.shape[0] * ds.feat.shape[1] * feat_dtype.itemsize
+        if feat_budget is None:
+            # read where the reference reads it (fgnn_tpu/engine.py:162-164)
+            feat_budget = env_int("FGNN_TPU_FEAT_HBM_BUDGET", -1)
+            feat_budget = None if feat_budget < 0 else feat_budget
         if feat_budget is None and dev.type == "cuda":
             total = torch.cuda.get_device_properties(dev).total_memory
             feat_budget = int(total * FEAT_MEMORY_SHARE)
@@ -151,6 +215,7 @@ class OneChipEngine:
                               tier_stats=tier_stats)
         log.info("sample plan: %s", self.plan)
 
+        t_copy.reset()
         self.feat_dev = self.host_feat = None
         if self.feat_on_device:
             self.feat_dev = torch.as_tensor(np.asarray(ds.feat),
@@ -161,6 +226,8 @@ class OneChipEngine:
             self.host_feat = HostFeatures(ds.feat, dev, mod=ds.feat_mod)
         self.label_dev = torch.as_tensor(
             np.asarray(ds.label).astype(np.int64), device=dev)
+        device_sync(dev)
+        copy_s += t_copy.passed()
         self.feat_gather = mock_gather if ds.empty_feat else device_gather
 
         # --- shuffler, generators -----------------------------------------
@@ -168,17 +235,52 @@ class OneChipEngine:
             ds.train_set, cfg.batch_size, self.plan.num_input_cap[0],
             base_seed=cfg.seed,
         )
+        prof.set_num_step(self.shuffler.num_step)
         self.dst_caps = tuple(reversed(self.plan.num_input_cap))
         self.sample_gen = torch.Generator(dev).manual_seed(cfg.seed)
         self.dropout_gen = torch.Generator(dev).manual_seed(cfg.seed + 0x5eed)
         self.last_overflowed = False
-        # (miss rows, feature rows) of the last host-resident step
+        # (miss rows, feature rows) of the last host-resident step, and the
+        # seconds of its Extract part (features())
         self.last_rows = (0, 0)
+        self.last_extract_s = 0.0
 
         # --- feature cache, only for a host-resident table -----------------
         self.cache = self.dyn_cache = None
         if cfg.use_cache and not self.feat_on_device:
             self._build_cache(presample_rand)
+
+        # --- opt-in sanity checks (SAMGRAPH_SANITY_CHECK analog) ----------
+        self.sanity = make_checker(cfg, ds.num_node)
+
+        # --- checkpoint / resume -----------------------------------------
+        self.ckpt = None
+        self.start_epoch = 0
+        if cfg.ckpt_dir:
+            self.ckpt = CheckpointManager(cfg.ckpt_dir)
+            restored = self.ckpt.restore()
+            if restored is not None:
+                self._load_ckpt_state(restored[0])
+                self.start_epoch = restored[1] + 1
+        prof.log_init("init_copy", copy_s)
+        prof.log_init("init_other", max(0.0, t_init.passed() - copy_s))
+
+    def _ckpt_state(self) -> dict:
+        """What a checkpoint holds: the parameters and the optimizer, and
+        the generators' states. The reference's draws are keyed by (epoch,
+        step); the port's generators carry state, so a resumed epoch draws
+        the batches and dropout masks of an uninterrupted one only with
+        them."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "sample_gen": self.sample_gen.get_state(),
+                "dropout_gen": self.dropout_gen.get_state()}
+
+    def _load_ckpt_state(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.sample_gen.set_state(state["sample_gen"])
+        self.dropout_gen.set_state(state["dropout_gen"])
 
     def _build_cache(self, presample_rand: Optional[RandFn]) -> None:
         """The reference's order (engine.py:186-234): the dynamic cache, or
@@ -239,33 +341,84 @@ class OneChipEngine:
         )
 
     # -- features ----------------------------------------------------------
-    def _host_rows(self, input_nodes: torch.Tensor,
-                   num_input: torch.Tensor) -> torch.Tensor:
-        """Every row of ``input_nodes`` from the host table, float32, zero
-        rows for padding: the reference's uncached host path."""
+    # Each stage below takes the step key of an observed step (None when
+    # nothing observes): with it, the stage opens its trace lane and writes
+    # its L2 item at profile level 2 or higher; ``sync`` ends it in a device
+    # sync.
+    def _log2(self, skey: Optional[int], item: str, span: Span) -> None:
+        if skey is not None and self.cfg.profile_level >= 2:
+            Profiler.get().log_step(skey, item, span.seconds)
+
+    @property
+    def host_rows_path(self) -> bool:
+        """The uncached host table: every input row crosses from the host."""
+        return (self.host_feat is not None and self.cache is None
+                and self.dyn_cache is None)
+
+    def fetch(self, batch, skey: Optional[int] = None, sync: bool = False):
+        """The copy of the batch's ids to the host (DoIdCopy), for
+        :meth:`host_rows`."""
+        with stage(self.device, skey, "kL2Event_Copy_Id", sync) as s:
+            f = self.host_feat.fetch(batch.input_nodes,
+                                     batch.num_input.reshape(1).to(torch.int32))
+        self._log2(skey, "L2_id_copy_time", s)
+        return f
+
+    def host_rows(self, f, skey: Optional[int] = None,
+                  sync: bool = False) -> torch.Tensor:
+        """Every row of a fetched batch from the host table, float32, zero
+        rows for padding: the reference's uncached host path. Sets
+        ``last_rows`` and ``last_extract_s`` (the host gather)."""
         host = self.host_feat
-        f = host.fetch(input_nodes, num_input.reshape(1).to(torch.int32))
-        rows, (n,), ready = host.load(f, torch.float32, compact=False)
-        host.ready(ready)
+        with stage(self.device, skey, "kL2Event_Copy_Extract", sync) as s:
+            rows, (n,), ready = host.load(f, torch.float32, compact=False)
+        self._log2(skey, "L2_extract_time", s)
+        with stage(self.device, skey, "kL2Event_Copy_FeatCopy", sync) as c:
+            host.ready(ready)
+        self._log2(skey, "L2_feat_copy_time", c)
         self.last_rows = (n, n)
+        self.last_extract_s = s.seconds
         return rows
 
-    def features(self, batch) -> torch.Tensor:
+    def features(self, batch, fetched=None, skey: Optional[int] = None,
+                 sync: bool = False) -> torch.Tensor:
         """The batch's input features on the device, by the engine's path.
-        On the host-resident path it sets ``last_rows`` to the step's
-        (miss rows, feature rows)."""
+        The uncached host path reads the rows of ``fetched`` (from
+        :meth:`fetch`), else fetches them here. Sets ``last_extract_s``, the
+        Extract part of Table 1's split (the device gather; the host gather
+        and a static cache's split), and on the host-resident path
+        ``last_rows``, the step's (miss rows, feature rows)."""
+        dev = self.device
         if self.feat_dev is not None:
-            return self.feat_gather(self.feat_dev, batch.input_nodes)
+            with stage(dev, skey, "kL2Event_Copy_Extract", sync) as s:
+                feats = self.feat_gather(self.feat_dev, batch.input_nodes)
+            self._log2(skey, "L2_extract_time", s)
+            self.last_extract_s = s.seconds
+            return feats
+        if self.host_rows_path:
+            return self.host_rows(fetched if fetched is not None
+                                  else self.fetch(batch), skey, sync)
+        self.last_extract_s = 0.0
         if self.dyn_cache is not None:
             feats = self.dyn_cache.extract(batch.input_nodes)
             miss, hit = self.dyn_cache.last_num_miss, self.dyn_cache.last_num_hit
-        elif self.cache is not None:
-            index = self.cache.get_miss_cache_index(batch.input_nodes)
-            rows, miss, hit = self.cache.upload_miss(index)
-            feats = self.cache.combine(index, rows, miss)
-        else:
-            return self._host_rows(batch.input_nodes, batch.num_input)
+            self.last_rows = (miss, miss + hit)
+            return feats
+        cache = self.cache
+        with stage(dev, skey, "kL2Event_Copy_CacheCopy", sync):
+            with stage(dev, skey, "kL3Event_Copy_CacheCopy_GetIndex",
+                       sync) as s:
+                index = cache.get_miss_cache_index(batch.input_nodes)
+            self._log2(skey, "L2_cache_get_index_time", s)
+            with stage(dev, skey, None, sync) as m:
+                rows, miss, hit = cache.upload_miss(index, trace_key=skey)
+            self._log2(skey, "L2_cache_extract_miss_time", m)
+            with stage(dev, skey, "kL3Event_Copy_CacheCopy_CombineMiss",
+                       sync) as c:
+                feats = cache.combine(index, rows, miss)
+            self._log2(skey, "L2_cache_combine_miss_time", c)
         self.last_rows = (miss, miss + hit)
+        self.last_extract_s = s.seconds + m.seconds
         return feats
 
     def train_on(self, batch, feats: torch.Tensor):
@@ -294,27 +447,80 @@ class OneChipEngine:
         return self.train_on(batch, self.features(batch))
 
     def _surface_overflow(self, epoch: int, overflowed: bool) -> None:
-        """A sampler cap overflow clips sampled nodes/edges: warn, or raise
-        under ``cfg.sanity_check``."""
+        """A sampler cap overflow clips sampled nodes/edges: count it in
+        ``epoch_cap_overflow`` and warn, or raise under the sanity check."""
         self.last_overflowed = overflowed
         if not overflowed:
             return
+        Profiler.get().log_epoch_add(epoch, "epoch_cap_overflow", 1.0)
         msg = (
             f"epoch {epoch}: sampler cap overflow — a batch exceeded the "
             f"calibrated unique/edge caps {self.plan.num_unique_cap}/"
             f"{self.plan.num_edge_cap} and was clipped (dropped neighbors). "
             "Raise constants.ALLOC_SCALE or calibrate_caps num_probe."
         )
-        if self.cfg.sanity_check:
+        if self.sanity is not None:
             raise RuntimeError(msg)
         log.warning(msg)
 
+    def _profile_l3(self, seeds: np.ndarray, num: int, skey: int) -> None:
+        """Measurement-only de-fused sub-op timing at profile level 3.
+
+        Runs the step's sampling workload as separate sub-ops with a device
+        sync after each: every hop's sample, ``unique_with_seeds`` and
+        ``lookup_local_ids``, writing the reference's L3 per-kernel items
+        and the L2 stage items they roll up into. It draws from a snapshot
+        of the sampler's generator and restores it, so the training sample
+        draws what it would have drawn. Only the khop family decomposes
+        this way (the random walk is one pass)."""
+        if self.cfg.sample_type == SampleType.RANDOM_WALK:
+            return
+        prof = Profiler.get()
+        plan, dev = self.plan, self.device
+        state = self.sample_gen.get_state()
+        try:
+            cur = torch.as_tensor(seeds, device=dev)
+            num_cur = torch.tensor(num, dtype=torch.int32, device=dev)
+            core = remap = 0.0
+            for hop in range(plan.num_layer):
+                with stage(dev, skey, "kL2Event_Sample_Core", True) as s:
+                    nbrs, _ = sample_layer(self.graph, cur, plan.fanouts[hop],
+                                           self.cfg.sample_type,
+                                           self.sample_gen)
+                prof.log_step_add(skey, "L3_khop_sample_coo_time", s.seconds)
+                core += s.seconds
+                with prof.span(skey, "kL2Event_Sample_IdRemap"):
+                    with stage(dev, skey, None, True) as su:
+                        unique, nu, _ = unique_with_seeds(
+                            cur, num_cur, nbrs, plan.num_unique_cap[hop])
+                    with stage(dev, skey, None, True) as sm:
+                        lookup_local_ids(unique, plan.num_input_cap[hop], nbrs)
+                prof.log_step_add(skey, "L3_remap_unique_time", su.seconds)
+                prof.log_step_add(skey, "L3_remap_map_edge_time", sm.seconds)
+                remap += su.seconds + sm.seconds
+                cur, num_cur = unique, nu
+            prof.log_step(skey, "L2_core_sample_time", core)
+            prof.log_step(skey, "L2_id_remap_time", remap)
+        finally:
+            self.sample_gen.set_state(state)
+
     # -- epochs ------------------------------------------------------------
+    def _knobs(self) -> bool:
+        """A per-step observer is on: the checker, node access, a trace."""
+        prof = Profiler.get()
+        return (self.sanity is not None or prof.log_node_access
+                or prof.trace_enabled)
+
     @property
     def pipelined(self) -> bool:
-        """Whether epochs run the cache prefetch pipeline."""
-        return self.cfg.pipeline and (self.cache is not None
-                                      or self.dyn_cache is not None)
+        """Whether epochs run the cache prefetch pipeline: with
+        ``cfg.pipeline``, a static cache or, below profile level 2, the
+        dynamic cache, and no per-step observer (the reference's gates,
+        fgnn_tpu/engine.py:734-755)."""
+        if not self.cfg.pipeline or self._knobs():
+            return False
+        return self.cache is not None or (self.dyn_cache is not None
+                                          and self.cfg.profile_level < 2)
 
     def _epoch_inputs(self, epoch: int):
         seeds_all, nums_all = self.shuffler.epoch_arrays(epoch)
@@ -331,14 +537,111 @@ class OneChipEngine:
         """Every step of one epoch: the ``[num_step, 4]`` device stats
         (loss, acc, edges, overflow), the host weights of the steps (1 where
         the batch is not empty) and, on the host-resident path, the epoch's
-        (miss rows, feature rows). The device-resident path never syncs."""
+        (miss rows, feature rows). The device-resident path, unobserved,
+        never syncs."""
         if self.pipelined:
             return self._dispatch_epoch_pipelined(epoch)
-        seeds_dev, nums_dev, weights = self._epoch_inputs(epoch)
+        if (self.feat_on_device and self.cfg.profile_level < 2
+                and not self._knobs()):
+            seeds_dev, nums_dev, weights = self._epoch_inputs(epoch)
+            stats = [self._stats(*self.step(seeds_dev[i], nums_dev[i]))
+                     for i in range(self.shuffler.num_step)]
+            return torch.stack(stats), weights, None
+        return self._dispatch_epoch_stepwise(epoch)
+
+    def _dispatch_epoch_stepwise(self, epoch: int):
+        """The stepwise loop (fgnn_tpu/engine.py:757-974), for the profiler
+        and the checker and for a host-resident table without the
+        pipeline: the stages of :meth:`step` (:meth:`sample`,
+        :meth:`fetch`, :meth:`features`, :meth:`train_on`), each timed on
+        the host clock, with a device sync at its end while anything
+        observes, and written to the profiler at the reference's levels. The
+        device-resident table below level 2 runs each step whole (the
+        reference's fused step). The same draws, batches and order as the
+        unobserved epoch."""
+        prof = Profiler.get()
+        dev = self.device
+        lvl = self.cfg.profile_level
+        sync = lvl >= 2 or self._knobs()
+        node_access = prof.log_node_access
+        cached = self.cache is not None or self.dyn_cache is not None
+        row_bytes = self.ds.feat_dim * (
+            4 if self.cache is None else self.cache.dtype.itemsize)
+        seeds_all, nums_all = self.shuffler.epoch_arrays(epoch)
+        # the epoch's seeds go up at once, as on the other paths: a step's
+        # own upload from pageable memory would wait for the card's queue
+        seeds_up = torch.as_tensor(seeds_all, device=dev)
         stats, rows = [], [0, 0]
-        for i in range(self.shuffler.num_step):
-            stats.append(self._stats(*self.step(seeds_dev[i], nums_dev[i])))
+        for step in range(self.shuffler.num_step):
+            seeds, n = seeds_all[step], int(nums_all[step])
+            skey = prof.step_key(epoch, step)
+            with stage(dev, skey, "kL0Event_Train_Step", sync):
+                if self.feat_on_device and lvl < 2:
+                    with stage(dev, skey, None, sync) as s:
+                        batch = self.sample(seeds_up[step], n,
+                                            self.sample_gen,
+                                            self.dedup_last_hop)
+                        if self.sanity is not None:
+                            self.sanity.check_batch(batch, self.plan)
+                        result = self.train_on(batch, self.features(batch))
+                    prof.log_step(skey, "L1_train_time", s.seconds)
+                    if node_access:
+                        prof.log_node_access_batch(batch.input_nodes.cpu().numpy())
+                    stats.append(self._stats(*result))
+                    continue
+
+                if lvl >= 3:
+                    self._profile_l3(seeds, n, skey)
+                fetched = ids = None
+                with stage(dev, skey, "kL1Event_Sample", sync) as s_sample:
+                    with stage(dev, skey, "kL2Event_Sample_Shuffle", sync) as s:
+                        seeds_dev = seeds_up[step]
+                    self._log2(skey, "L2_shuffle_time", s)
+                    batch = self.sample(seeds_dev, n, self.sample_gen,
+                                        self.dedup_last_hop)
+                    # the ids' copy to the host (DoIdCopy), behind the sample
+                    if self.host_rows_path:
+                        fetched = self.fetch(batch, skey, sync)
+                    elif node_access:
+                        with stage(dev, skey, "kL2Event_Copy_Id", sync) as s:
+                            ids = batch.input_nodes.cpu()
+                        self._log2(skey, "L2_id_copy_time", s)
+                prof.log_step(skey, "L1_sample_time", s_sample.seconds)
+                prof.log_epoch_add(epoch, "epoch_sample_time", s_sample.seconds)
+                if self.sanity is not None:
+                    self.sanity.check_batch(batch, self.plan)
+
+                with stage(dev, skey, "kL1Event_Copy", sync) as s_copy:
+                    feats = self.features(batch, fetched, skey, sync)
+                prof.log_step(skey, "L1_copy_time", s_copy.seconds)
+                # Table 1's split: Extract (the gather, or a cache's split
+                # and miss gather) against Copy (upload and merge)
+                et = self.last_extract_s
+                prof.log_epoch_add(epoch, "epoch_extract_time", et)
+                if not self.feat_on_device:
+                    prof.log_epoch_add(epoch, "epoch_copy_time",
+                                       max(s_copy.seconds - et, 0.0))
+                if cached:
+                    miss, total = self.last_rows
+                    if self.cache is not None:
+                        prof.log_step(skey, "L1_miss_nbytes",
+                                      float(miss * row_bytes))
+                    prof.log_epoch_add(epoch, "epoch_miss_bytes",
+                                       float(miss * row_bytes))
+                    prof.log_epoch_add(epoch, "epoch_feature_bytes",
+                                       float(total * row_bytes))
+                prof.log_step(skey, "L1_feature_bytes",
+                              float(feats.numel() * feats.element_size()))
+                if node_access:
+                    prof.log_node_access_batch(
+                        (fetched.ids if fetched is not None else ids).numpy())
+                with stage(dev, skey, "kL1Event_Train", sync) as s:
+                    result = self.train_on(batch, feats)
+                prof.log_step(skey, "L1_train_time", s.seconds)
+                prof.log_epoch_add(epoch, "epoch_train_time", s.seconds)
+            stats.append(self._stats(*result))
             rows = [a + b for a, b in zip(rows, self.last_rows)]
+        weights = torch.as_tensor(nums_all > 0, dtype=torch.float32)
         return (torch.stack(stats), weights,
                 None if self.feat_on_device else rows)
 
@@ -351,45 +654,95 @@ class OneChipEngine:
         ids, gather the rows on the host and upload them on the copy stream;
         meanwhile this thread combines and trains batch k, its stream waiting
         for batch k's upload. The same batches, draws and order as the
-        synchronous epoch, so the same numbers."""
+        synchronous epoch, so the same numbers.
+
+        At profile level 2 or higher (the static cache) each stage ends in
+        a device sync and writes its L1 time: the sample and split, the
+        host part, the combine and train; the overlap stays. The host
+        part's epoch items split it as Table 1 does (the reference files it
+        all under ``epoch_copy_time``): the miss gather as
+        ``epoch_extract_time``, the rest as ``epoch_copy_time``."""
+        prof = Profiler.get()
+        sync = self.cfg.profile_level >= 2
         seeds_dev, nums_dev, weights = self._epoch_inputs(epoch)
         host = self.host_feat
         cache = self.cache if self.cache is not None else self.dyn_cache
         split = (self.cache.get_miss_cache_index if self.cache is not None
                  else self.dyn_cache.split_and_advance)
+        row_bytes = self.ds.feat_dim * cache.dtype.itemsize
+
+        def load(f):
+            t = Timer()
+            out = host.load(f, cache.dtype)
+            if sync and out[2] is not None:
+                out[2].synchronize()        # the upload is done
+            return out, t.passed(), host.last_gather_s
+
         stats, rows = [], [0, 0]
         with ThreadPoolExecutor(max_workers=1) as worker:
             def produce(i):
+                t = Timer()
                 batch = self.sample(seeds_dev[i], nums_dev[i], self.sample_gen,
                                     True)
                 index = split(batch.input_nodes)
+                if sync:
+                    device_sync(self.device)
+                    skey = prof.step_key(epoch, i)
+                    prof.log_step(skey, "L1_sample_time", t.passed())
+                    prof.log_epoch_add(epoch, "epoch_sample_time", t.passed())
                 f = host.fetch(index.miss_ids,
                                torch.stack([index.num_miss, index.num_hit]))
-                return batch, index, worker.submit(host.load, f, cache.dtype)
+                return batch, index, worker.submit(load, f)
 
             pending = produce(0)
             for i in range(self.shuffler.num_step):
                 batch, index, job = pending
                 if i + 1 < self.shuffler.num_step:
                     pending = produce(i + 1)
-                miss_rows, (miss, hit), ready = job.result()
+                (miss_rows, (miss, hit), ready), host_s, gather_s = job.result()
+                skey = prof.step_key(epoch, i)
+                t = Timer()
                 host.ready(ready)
                 feats = cache.combine(index, miss_rows, miss)
                 stats.append(self._stats(*self.train_on(batch, feats)))
+                if sync:
+                    device_sync(self.device)
+                    # the host part: the miss gather (Table 1's Extract)
+                    # and the rest, ids' wait and upload (its Copy)
+                    prof.log_step(skey, "L1_copy_time", host_s)
+                    prof.log_epoch_add(epoch, "epoch_extract_time", gather_s)
+                    prof.log_epoch_add(epoch, "epoch_copy_time",
+                                       max(host_s - gather_s, 0.0))
+                    prof.log_step(skey, "L1_train_time", t.passed())
+                    prof.log_epoch_add(epoch, "epoch_train_time", t.passed())
+                prof.log_step(skey, "L1_miss_nbytes", float(miss * row_bytes))
+                prof.log_epoch_add(epoch, "epoch_miss_bytes",
+                                   float(miss * row_bytes))
+                prof.log_epoch_add(epoch, "epoch_feature_bytes",
+                                   float((miss + hit) * row_bytes))
                 rows = [rows[0] + miss, rows[1] + miss + hit]
         return torch.stack(stats), weights, rows
 
     def run_epochs(self, start_epoch: int, n: int) -> List[dict]:
-        """``n`` epochs back to back with one host sync at the end; the same
-        math and dicts as ``n`` :meth:`run_epoch` calls. Each epoch reports
-        ``epoch_time`` as the total over ``n``, and surfaces its overflow.
-        With a host-resident table each epoch also reports ``miss_bytes``
-        and ``feature_bytes`` (the reference's profiler counters: rows from
-        the host, and all input rows, times the staging bytes of a row; the
-        hit rate is 1 - miss/feature)."""
+        """``n`` epochs back to back, the device-resident path with one
+        host sync at the end; the same math and dicts as ``n``
+        :meth:`run_epoch` calls. Each epoch reports ``epoch_time`` as the
+        total over ``n`` (also the profiler's ``epoch_total_time``), and
+        surfaces its overflow. With a host-resident table each epoch also
+        reports ``miss_bytes`` and ``feature_bytes`` (the reference's
+        profiler counters: rows from the host, and all input rows, times
+        the staging bytes of a row; the hit rate is 1 - miss/feature). With
+        ``cfg.ckpt_dir`` and a window that crosses a multiple of
+        ``cfg.ckpt_every``, its last epoch is saved."""
+        prof = Profiler.get()
         t0 = time.perf_counter()
         epochs = range(start_epoch, start_epoch + n)
-        dispatched = [self._dispatch_epoch(e) for e in epochs]
+        dispatched = []
+        for e in epochs:
+            prof.begin_node_access_epoch()
+            if self.sanity is not None:
+                self.sanity.reset()
+            dispatched.append(self._dispatch_epoch(e))
         stats = torch.stack([s for s, _, _ in dispatched]).cpu()   # the one sync
         epoch_time = (time.perf_counter() - t0) / n
         # the reference's counters: rows times the bytes of a staged row,
@@ -400,6 +753,7 @@ class OneChipEngine:
         for e, s, (_, w, rows) in zip(epochs, stats, dispatched):
             wsum = max(float(w.sum()), 1.0)
             self._surface_overflow(e, bool(s[:, 3].any()))
+            prof.log_epoch_add(e, "epoch_total_time", epoch_time)
             r = {
                 "epoch": e,
                 "epoch_time": epoch_time,
@@ -412,6 +766,10 @@ class OneChipEngine:
                 r["miss_bytes"] = rows[0] * row_bytes
                 r["feature_bytes"] = rows[1] * row_bytes
             out.append(r)
+        every = self.cfg.ckpt_every
+        if self.ckpt is not None and every > 0 and any(
+                (e + 1) % every == 0 for e in epochs):
+            self.ckpt.save(epochs[-1], self._ckpt_state())
         return out
 
     def run_epoch(self, epoch: int) -> dict:
@@ -447,7 +805,7 @@ class OneChipEngine:
             if self.feat_dev is not None:
                 feats = self.feat_gather(self.feat_dev, batch.input_nodes)
             else:
-                feats = self._host_rows(batch.input_nodes, batch.num_input)
+                feats = self.host_rows(self.fetch(batch))
             labels = label_gather(self.label_dev, batch.output_nodes)
             accs.append(eval_step(self.model, batch, feats, labels,
                                   self.dst_caps, cfg.batch_size))

@@ -1,0 +1,2 @@
+"""The experiment runners (port of the repo's ``exp/``), run as
+``python -m fgnn_tpu_torch.exp.<runner>``."""

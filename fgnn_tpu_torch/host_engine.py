@@ -23,10 +23,15 @@ Every hop dedups (the host sampler has no no-dedup hop), so each layer's
 combine runs it once more. Unlike the reference, a batch whose new nodes
 overflowed a unique cap reports ``overflowed`` (the reference reports
 False and clips silently).
+
+An epoch writes the reference's profiler items (fgnn_tpu/host_engine.py:
+395-465): the L1 stage times, ``L2_extract_time`` at level 2 and the epoch
+items, with a device sync after the copy and the train stage at level 2
+or higher. Beyond the reference, the checker and node access read each host
+batch.
 """
 from __future__ import annotations
 
-import time
 from typing import List
 
 import numpy as np
@@ -37,16 +42,18 @@ from .cache.policy import build_ranking
 from .config import CachePolicy, RunConfig, SampleType
 from .data.schema import Dataset
 from .data.synthetic import build_alias_tables
-from .engine import OneChipEngine
+from .engine import OneChipEngine, device_sync
 from .models.gnn import build_model
 from .ops import host_lib
 from .ops.extract import HostFeatures, label_gather
 from .ops.padding import SamplePlan, make_plan
 from .ops.reference_impl import calibrate_caps, np_sample_hop_vec
 from .ops.sampling import Block, SampledBatch
+from .ops.sanity import make_checker
 from .parallel.shuffler import EpochShuffler
 from .train.loop import make_optimizer, train_step
-from .utils import get_logger
+from .utils import Timer, get_logger
+from .utils.profiler import Profiler
 
 log = get_logger(__name__)
 
@@ -313,6 +320,8 @@ class HostSamplingEngine:
         self.cfg = cfg
         self.ds = ds
         self.device = dev = torch.device(device)
+        prof = Profiler.get()
+        prof.level = max(prof.level, cfg.profile_level)
         self.indptr = np.asarray(ds.indptr)
         self.indices = np.asarray(ds.indices)
         st = cfg.sample_type
@@ -345,6 +354,8 @@ class HostSamplingEngine:
         self.shuffler = EpochShuffler(ds.train_set, cfg.batch_size,
                                       self.plan.num_input_cap[0],
                                       base_seed=cfg.seed)
+        prof.set_num_step(self.shuffler.num_step)
+        self.sanity = make_checker(cfg, ds.num_node)
         # no compute dtype: arch0 trains in float32, as the reference
         self.model = build_model(
             cfg.model, ds.feat_dim, cfg.num_hidden, ds.num_class,
@@ -358,6 +369,7 @@ class HostSamplingEngine:
         self.dropout_gen = torch.Generator(dev).manual_seed(cfg.seed + 0x5eed)
         self.last_overflowed = False
         self.last_rows = (0, 0)
+        self.last_extract_s = 0.0
 
         self.rng = np.random.default_rng(cfg.seed)
         # the reference samples its parameter-shaping batch from self.rng
@@ -409,16 +421,21 @@ class HostSamplingEngine:
         """The batch's float32 input rows on the device: every row gathered
         on the host and uploaded, or with a cache only the misses, merged
         with the cached rows on the device. Sets ``last_rows`` to the
-        step's (miss rows, feature rows)."""
+        step's (miss rows, feature rows) and ``last_extract_s`` to the host
+        seconds of its gather (a cache's split and miss gather included):
+        the Extract part of the reference's Table-1 split."""
+        t = Timer()
         if self.cache is not None:
             index = self.cache.get_miss_cache_index(batch.input_nodes)
             rows, miss, hit = self.cache.upload_miss(index)
+            self.last_extract_s = t.passed()
             self.last_rows = (miss, miss + hit)
             return self.cache.combine(index, rows, miss)
         host = self.host_feat
         n = int(host_batch.num_input)
         f = host.fetch(host_batch.input_nodes, host_batch.num_input.reshape(1))
         rows, _, ready = host.load(f, torch.float32, compact=False)
+        self.last_extract_s = t.passed()
         host.ready(ready)
         self.last_rows = (n, n)
         return rows
@@ -442,25 +459,65 @@ class HostSamplingEngine:
     def run_epoch(self, epoch: int) -> dict:
         """One epoch; the reference's keys, with a cache also
         ``miss_bytes`` and ``feature_bytes`` (float32 rows). Syncs once,
-        at the end."""
-        t0 = time.perf_counter()
+        at the end, below profile level 2."""
+        prof = Profiler.get()
+        sync = self.cfg.profile_level >= 2
+        prof.begin_node_access_epoch()
+        if self.sanity is not None:
+            self.sanity.reset()
+        t_epoch = Timer()
         stats, rows, overflowed = [], [0, 0], False
-        for seeds, n, _ in self.shuffler.batches(epoch):
-            loss, acc, host_batch = self.step(seeds, n)
+        row_bytes = self.ds.feat_dim * 4
+        for seeds, n, step in self.shuffler.batches(epoch):
+            skey = prof.step_key(epoch, step)
+            t = Timer()
+            host_batch = self.sample(self.rng, seeds, n)
+            batch = batch_to(host_batch, self.device)
+            st = t.passed()
+            prof.log_step(skey, "L1_sample_time", st)
+            prof.log_epoch_add(epoch, "epoch_sample_time", st)
+            if self.sanity is not None:
+                self.sanity.check_batch(host_batch, self.plan)
+            prof.log_node_access_batch(host_batch.input_nodes.numpy())
+            # Table 1 splits Extract (the host gather, DoCPUFeatureExtract)
+            # from Copy (the host-to-device transfer)
+            t.reset()
+            feats = self.features(host_batch, batch)
+            if sync:
+                device_sync(self.device)
+            et = self.last_extract_s
+            ct = t.passed() - et
+            prof.log_step(skey, "L2_extract_time", et)
+            prof.log_epoch_add(epoch, "epoch_extract_time", et)
+            prof.log_step(skey, "L1_copy_time", ct + et)
+            prof.log_epoch_add(epoch, "epoch_copy_time", ct)
+            if self.cache is not None:
+                miss, total = self.last_rows
+                prof.log_epoch_add(epoch, "epoch_miss_bytes",
+                                   float(miss * row_bytes))
+                prof.log_epoch_add(epoch, "epoch_feature_bytes",
+                                   float(total * row_bytes))
+            t.reset()
+            loss, acc = self.train_on(batch, feats)
+            if sync:
+                device_sync(self.device)
+            prof.log_step(skey, "L1_train_time", t.passed())
+            prof.log_epoch_add(epoch, "epoch_train_time", t.passed())
             stats.append(torch.stack([loss.float(), acc.float()]))
             rows = [a + b for a, b in zip(rows, self.last_rows)]
             overflowed |= bool(host_batch.overflowed)
         mean = (torch.stack(stats).cpu().mean(0) if stats   # the one sync
                 else torch.zeros(2))
+        epoch_time = t_epoch.passed()
+        prof.log_epoch_add(epoch, "epoch_total_time", epoch_time)
         r = {
             "epoch": epoch,
-            "epoch_time": time.perf_counter() - t0,
+            "epoch_time": epoch_time,
             "loss": float(mean[0]),
             "acc": float(mean[1]),
             "num_step": self.shuffler.num_step,
         }
         if self.cache is not None:
-            row_bytes = self.ds.feat_dim * 4
             r["miss_bytes"] = rows[0] * row_bytes
             r["feature_bytes"] = rows[1] * row_bytes
         self._surface_overflow(epoch, overflowed)

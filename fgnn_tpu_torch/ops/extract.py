@@ -141,6 +141,7 @@ class HostFeatures:
         self.copy_stream = torch.cuda.Stream(self.device) if self.cuda else None
         self._slots = [_Slot() for _ in range(self.SLOTS)]
         self._next = 0
+        self.last_gather_s = 0.0   # host seconds of the last load's gather
         self.reset_counters()
 
     # -- measurement -----------------------------------------------------
@@ -256,5 +257,6 @@ class HostFeatures:
             torch.cuda.current_stream(self.device).wait_event(event)
 
     def _count(self, t0: float, n: int) -> None:
-        self._gather_s += time.perf_counter() - t0
+        self.last_gather_s = time.perf_counter() - t0
+        self._gather_s += self.last_gather_s
         self._gather_rows += n

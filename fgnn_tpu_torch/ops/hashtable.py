@@ -6,6 +6,10 @@ locals at or past ``out_cap`` become -1, and an overflow flag reports the
 clipping. Padding (-1) maps to INT_MAX before the sort, so it sorts last.
 :func:`unique_and_remap_direct` gives the same results without a sort,
 through a direct-index table over the graph's nodes.
+
+:func:`unique_with_seeds` and :func:`lookup_local_ids` are the reference's
+unfused FillWithDuplicates and SearchO2N, which only the profile-level-3
+measurement pass runs (``OneChipEngine._profile_l3``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,72 @@ _POS_BITS = 31
 def _to_sentinel(x: torch.Tensor) -> torch.Tensor:
     """-1 padding -> INT_MAX (as int64) so padded entries sort last."""
     return torch.where(x < 0, INT_MAX, x.long())
+
+
+def unique_with_seeds(
+    seeds: torch.Tensor,
+    num_seeds,
+    neighbors: torch.Tensor,
+    out_cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FillWithDuplicates: ``(unique [out_cap] int32 -1-padded, seeds first
+    in input order then the new ids ascending; num_unique; overflowed)``.
+
+    The reference's arithmetic, its edge included: new ids go to a buffer
+    of ``max(out_cap - S, 1)``, so with ``out_cap == S`` one new id still
+    counts in ``num_unique`` though none is appended. ``overflowed`` says
+    that new ids were dropped. The distinct count is read on the host.
+    """
+    S = seeds.shape[0]
+    device = seeds.device
+    seeds_s = _to_sentinel(seeds)
+    nbr_s = _to_sentinel(neighbors)
+    sorted_seeds = torch.sort(seeds_s).values
+    pos = torch.searchsorted(sorted_seeds, nbr_s).clamp(max=S - 1)
+    cand = torch.where(sorted_seeds[pos] == nbr_s, INT_MAX, nbr_s)
+
+    new_cap = max(out_cap - S, 1)
+    distinct = torch.unique(cand)                     # ascending
+    distinct = distinct[distinct != INT_MAX]
+    num_new = min(distinct.shape[0], new_cap)
+    uniq_new = torch.full((new_cap,), INT_MAX, dtype=torch.int64,
+                          device=device)
+    uniq_new[:num_new] = distinct[:num_new]
+
+    unique = torch.full((out_cap,), INT_MAX, dtype=torch.int64, device=device)
+    unique[:S] = seeds_s
+    unique[S:] = uniq_new[:out_cap - S]
+    num_unique = torch.as_tensor(num_seeds, dtype=torch.int32,
+                                 device=device) + num_new
+    overflowed = torch.tensor(distinct.shape[0] > num_new, device=device)
+    return (torch.where(unique == INT_MAX, -1, unique).int(), num_unique,
+            overflowed)
+
+
+def lookup_local_ids(
+    unique: torch.Tensor,
+    num_seeds_static: int,
+    queries: torch.Tensor,
+) -> torch.Tensor:
+    """SearchO2N / GPUMapEdges: the local id of each query in ``unique``
+    (laid out as :func:`unique_with_seeds` gives it: seeds in
+    ``[0, num_seeds_static)`` in any order, the rest ascending); -1 for a
+    query not there and for padding."""
+    S = num_seeds_static
+    seeds_s = _to_sentinel(unique[:S])
+    rest = _to_sentinel(unique[S:])
+    q = _to_sentinel(queries)
+
+    sorted_seeds, order = torch.sort(seeds_s, stable=True)
+    p = torch.searchsorted(sorted_seeds, q).clamp(max=S - 1)
+    hit_seed = sorted_seeds[p] == q
+    local = torch.where(hit_seed, order[p], -1)
+    # the appended region is ascending already, and empty when the unique
+    # cap equals the seed cap
+    if rest.shape[0]:
+        p2 = torch.searchsorted(rest, q).clamp(max=rest.shape[0] - 1)
+        local = torch.where(~hit_seed & (rest[p2] == q), S + p2, local)
+    return torch.where(q == INT_MAX, -1, local).int()
 
 
 def unique_and_remap(

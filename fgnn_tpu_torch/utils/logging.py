@@ -1,4 +1,9 @@
-"""Leveled logging (the port's copy of ``fgnn_tpu/utils/logging.py``)."""
+"""Leveled logging and the apps' result lines (the port's copy of
+``fgnn_tpu/utils/logging.py``).
+
+``config:<k>=<v>`` and ``test_result:<k>=<v>`` are the source system's
+machine-parseable app lines (common_config.py:221-230,
+train_gcn.py:411-412), which the experiment runners parse."""
 from __future__ import annotations
 
 import logging
@@ -30,3 +35,13 @@ def get_logger(name: str = "fgnn_tpu_torch") -> logging.Logger:
         logger.setLevel(_LEVELS.get(level, logging.INFO))
         logger.propagate = False
     return logger
+
+
+def log_config(key: str, value) -> None:
+    """Emit a ``config:k=v`` line (common_config.py:221-230 format)."""
+    print(f"config:{key}={value}", flush=True)
+
+
+def log_test_result(key: str, value) -> None:
+    """Emit a ``test_result:k=v`` line (train_gcn.py:411-412 format)."""
+    print(f"test_result:{key}={value}", flush=True)
