@@ -104,12 +104,42 @@ Phases, none of which catches a failure (any failure exits non-zero):
      OneChipEngine in this process, its steady epoch beside the app's;
  21. the Table-1 ablation (``python -m fgnn_tpu_torch.exp.table1``) at its
      defaults with two epochs, one row at a time: five rows, each rc 0
-     with a finite epoch_time and non-zero stage columns.
+     with a finite epoch_time and non-zero stage columns;
+ 22. small input, arch5 (``FactoredEngine``) S=1 with T=1 and T=2 and
+     arch6 (``SGNNEngine``) W=1 and W=2, every role on the card, against
+     the CPU: one epoch from the same parameters and CPU-drawn uniforms,
+     edges equal, loss and parameters within 1e-4;
+ 23. at the bench configuration, in a process of its own (``python -m
+     fgnn_tpu_torch.tools.factored_epochs``): arch5 S=1 T=1 on
+     [cuda:0, cuda:0], the table on the trainer, three epochs; its cache
+     mode (PRESAMPLE 10%) pipelined and synchronous, two epochs each,
+     bit-equal; arch6 W=1 and W=2, two epochs each; then an arch5 epoch
+     under torch.profiler for the card's busy seconds, over the profiled
+     and the unprofiled epoch. Losses finite and falling, no overflow, the
+     row gather's launches per group; epoch times, edges/s, hit rates,
+     peak memory;
+ 24. the row gather at the arch5 and arch6 paths' own shapes at the bench
+     configuration (untiered plans; arch5's dedup'd last hop gathers in
+     layer 1, arch6's feature gather takes [frontier | picks]): the first
+     group's gathers of an epoch, as the path made them, bit-equal to the
+     plain version and timed beside their bound and ``index_select``;
+ 25. arch5 S=1 T=2 on one card at the bench configuration: one group's
+     data-parallel step against one replica's step on the same batches
+     and weighted loss, parameters within 1e-4;
+ 26. the switcher (``FGNN_TPU_SWITCHER_FORCE=1``, S=1 T=1) and the async
+     trainers (T=2, averaging every 2 groups), one epoch each: finite
+     losses, the switcher's tail engaged;
+ 27. the reference's placement gates, in a process of their own with
+     deterministic algorithms, where a second card exists; else one line
+     saying they did not run;
+ 28. the app, ``train_gnn --arch arch5 --devices cuda:0,cuda:0`` at the
+     bench configuration, two epochs: rc 0, its devices, keys and
+     launches.
 The app processes read the bytecode this process compiles
 (``fgnn_tpu_torch/_build/pycache``): without it each one compiles torch's
 sources again on a machine whose packages hold none.
-The 1M-node graph is built once and shared by 5, 9, 11, 13, 15, 16, 17 and
-19 (the app builds its own). Prints
+The 1M-node graph is built once and shared by 5, 9, 11, 13, 15, 16, 17,
+19 and 24-26 (the apps and phase 23's process build their own). Prints
 a JSON line of kernel results (each with its bound on this card and the
 time of the one PyTorch call that computes the same function), then as its
 last line ``{"ok": true, "device": {...}}``.
@@ -191,10 +221,39 @@ def check_equal(table, ids, label):
     return float((out.double() - ref.double()).abs().max())
 
 
-def kernel_phase(dev, card):
+def time_gather(table, ids, name, card):
+    """The row gather, its plain version and ``index_select`` over the same
+    rows timed with CUDA events (median ms), beside the bound: each valid
+    row read once, every output row written once, the ids read once."""
     import torch
     from fgnn_tpu_torch.ops.gather import gather_rows, gather_rows_reference
     from fgnn_tpu_torch.tools.gather_campaign import median_ms
+
+    (n, d), m = table.shape, ids.shape[0]
+    # the one PyTorch call for the same rows: index_select over the ids
+    # with padding clamped to row 0 (it cannot write zero rows itself)
+    rows = ids.clamp(min=0).long()
+    k_ms, p_ms, l_ms = median_ms([
+        lambda: gather_rows(table, ids),
+        lambda: gather_rows_reference(table, ids),
+        lambda: torch.index_select(table, 0, rows)])
+    valid = int((ids >= 0).sum())
+    moved = (valid + m) * d * table.element_size() + m * 4
+    timing = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+              "bound_ms": bound_ms(moved)}
+    dtype = str(table.dtype).replace("torch.", "")
+    for who, ms in (("kernel", k_ms), ("plain", p_ms), ("index_select", l_ms)):
+        print(f"  {name} [{n}, {d}] {dtype}, {m} ids ({m - valid} padding), "
+              f"{who}: {ms:.4f} ms, {m / ms / 1e3:.1f} M rows/s, "
+              f"{moved / ms / 1e6:.1f} GB/s ({card})")
+    print(f"  {name}: bound {timing['bound_ms']:.4f} ms ({moved} B at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s), kernel at "
+          f"{timing['bound_ms'] / k_ms:.1%} of it")
+    return timing
+
+
+def kernel_phase(dev, card):
+    import torch
 
     gen = torch.Generator(dev).manual_seed(0)
     max_err = 0.0
@@ -203,26 +262,7 @@ def kernel_phase(dev, card):
         table = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
         ids = padded_ids(n, m, 0.3, gen, dev)
         max_err = max(max_err, check_equal(table, ids, name))
-        # the one PyTorch call for the same rows: index_select over the ids
-        # with padding clamped to row 0 (it cannot write zero rows itself)
-        rows = ids.clamp(min=0).long()
-        k_ms, p_ms, l_ms = median_ms([
-            lambda: gather_rows(table, ids),
-            lambda: gather_rows_reference(table, ids),
-            lambda: torch.index_select(table, 0, rows)])
-        valid = int((ids >= 0).sum())
-        # each valid row read once, every output row written once, the ids
-        moved = (valid + m) * d * table.element_size() + m * 4
-        timing[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                        "bound_ms": bound_ms(moved)}
-        for who, ms in (("kernel", k_ms), ("plain", p_ms),
-                        ("index_select", l_ms)):
-            print(f"  {name} [{n}, {d}] bf16, {m} ids ({m - valid} padding), "
-                  f"{who}: {ms:.4f} ms, {m / ms / 1e3:.1f} M rows/s, "
-                  f"{moved / ms / 1e6:.1f} GB/s ({card})")
-        print(f"  {name}: bound {timing[name]['bound_ms']:.4f} ms ({moved} B "
-              f"at {HBM_BYTES_PER_S / 1e12} TB/s), kernel at "
-              f"{timing[name]['bound_ms'] / k_ms:.1%} of it")
+        timing[name] = time_gather(table, ids, name, card)
 
     # dtypes, widths, ragged M, repeated ids, all padding, M = 1
     cases = 0
@@ -878,33 +918,21 @@ def host_epochs(dev, card, eng, label, n=1, start=0):
     return results, launches, steps
 
 
-def device_busy(dev, fn):
-    """Run ``fn`` under torch.profiler: (wall s, the union of the card's
-    kernel and copy intervals in s, the top kernels by device time)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profiled_epoch(dev, card, label, fn, plain_s):
+    """Run ``fn`` (an epoch) under torch.profiler and print the card's busy
+    seconds (``tools/factored_epochs.busy_share``) over the profiled wall
+    time and over ``plain_s``, the same engine's last epoch without the
+    profiler: the profiler slows the host's launch path, so the first share
+    reads low. Then the top kernels by device time."""
+    from fgnn_tpu_torch.tools.factored_epochs import busy_share
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return wall, busy / 1e6, top
+    b = busy_share(dev, fn)
+    print(f"  {label} under torch.profiler: wall {b['wall_s']:.4f} s, card "
+          f"busy {b['busy_s']:.4f} s = {b['busy_share']:.1%} of it, "
+          f"{b['busy_s'] / plain_s:.1%} of the unprofiled epoch's "
+          f"{plain_s:.4f} s; top device time: "
+          + ", ".join(f"{n[:40]} {ms:.1f} ms" for n, ms in b["top_kernels_ms"])
+          + f" ({card})")
 
 
 def cache_stages(dev, card, eng, steps=8):
@@ -1014,11 +1042,8 @@ def cache_phase(dev, card, ds):
     check(l1 < l0, f"epoch-1 loss {l1} is not below epoch 0's {l0}")
     check(l1 < math.log(NUM_CLASS), f"epoch-1 loss {l1} is not below ln 172")
     total = launches
-    wall, busy, top = device_busy(dev, lambda: eng.run_epoch(2))
-    print(f"  PRESAMPLE 10% pipelined epoch 2 under torch.profiler: wall "
-          f"{wall:.4f} s, card busy {busy:.4f} s ({busy / wall:.1%}); top "
-          "device time: " + ", ".join(f"{n[:40]} {us / 1e3:.1f} ms"
-                                      for n, us in top) + f" ({card})")
+    profiled_epoch(dev, card, "PRESAMPLE 10% pipelined epoch 2",
+                   lambda: eng.run_epoch(2), results[1]["epoch_time"])
     # the host gather shares the host's cores with the thread that launches
     # the card's work: one epoch with half the intra-op threads
     threads = torch.get_num_threads()
@@ -1244,11 +1269,8 @@ def other_sampler_runs(dev, card, ds):
         del batch
         if n_epochs == 2:
             results, launches = train_phase(dev, card, ds, eng, per_step)
-            wall, busy, top = device_busy(dev, lambda: eng.run_epoch(2))
-            print(f"  epoch 2 under torch.profiler: wall {wall:.4f} s, card "
-                  f"busy {busy:.4f} s ({busy / wall:.1%}); top device time: "
-                  + ", ".join(f"{n[:40]} {us / 1e3:.1f} ms" for n, us in top)
-                  + f" ({card})")
+            profiled_epoch(dev, card, "epoch 2", lambda: eng.run_epoch(2),
+                           results[-1]["epoch_time"])
         else:
             torch.cuda.reset_peak_memory_stats(dev)
             cuda_lib.reset_launches()
@@ -1425,11 +1447,8 @@ def arch0_phase(dev, card, ds):
     l0, l1 = results[0]["loss"], results[1]["loss"]
     check(l1 < l0, f"arch0 epoch-1 loss {l1} is not below epoch 0's {l0}")
     arch0_stages(dev, card, eng)
-    wall, busy, top = device_busy(dev, lambda: eng.run_epoch(2))
-    print(f"  arch0 GraphSAGE epoch 2 under torch.profiler: wall {wall:.4f} "
-          f"s, card busy {busy:.4f} s ({busy / wall:.1%}); top device time: "
-          + ", ".join(f"{n[:40]} {us / 1e3:.1f} ms" for n, us in top)
-          + f" ({card})")
+    profiled_epoch(dev, card, "arch0 GraphSAGE epoch 2",
+                   lambda: eng.run_epoch(2), results[1]["epoch_time"])
     del eng
     for label, kw, per_step in (
             ("arch0 GraphSAGE PRESAMPLE 10%",
@@ -1705,6 +1724,372 @@ def table1_phase(card):
     return total
 
 
+# --- phases 22-28: the multi-device engines (arch5, arch6) on one card -------
+
+# the row gathers of a batch on arch5's main path, in the order it makes
+# them: the feature gather and gather_src on both dedup'd hops (the plan has
+# no tiers, so no dst_invperm); in cache mode the combine takes the feature
+# gather's place
+ARCH5_GATHERS = ("feature gather", "layer-1 gather_src", "layer-2 gather_src")
+ARCH5_LAUNCHES_PER_BATCH = len(ARCH5_GATHERS)
+# arch6 GraphSAGE: the feature gather and the dedup'd hop's gather_src (the
+# no-dedup last hop's gather_src is a slice)
+ARCH6_GATHERS = ("feature gather", "layer-2 gather_src")
+ARCH6_LAUNCHES_PER_BATCH = len(ARCH6_GATHERS)
+
+
+def multi_device_small_phase(dev):
+    """arch5 (S=1 with T=1 and T=2) and arch6 (W=1 and W=2) on the small
+    input, every role on the card, against the same engine on the CPU: one
+    epoch from the same parameters and CPU-drawn uniforms, the sampled
+    edges equal, the loss and the parameters after it within 1e-4."""
+    import torch
+    from fgnn_tpu_torch.parallel.factored import FactoredEngine, SGNNEngine
+
+    ds = small_dataset()
+    for label, cls, n, kw in (
+            ("arch5 S=1 T=1", FactoredEngine, 2, {"num_train_worker": 1}),
+            ("arch5 S=1 T=2", FactoredEngine, 3, {"num_train_worker": 2}),
+            ("arch6 W=1", SGNNEngine, 1, {"num_train_worker": 1}),
+            ("arch6 W=2", SGNNEngine, 2, {"num_train_worker": 2})):
+        cfg = small_config("graphsage", fanout=(10, 3), **kw)
+        shapes = {}
+
+        def draws(epoch, step):
+            gen = torch.Generator().manual_seed(1000 * epoch + step)
+            return [torch.rand(s, generator=gen) for s in shapes["s"]]
+
+        cpu = cls(cfg, ds, ["cpu"] * n, rand_fn=draws)
+        gpu = cls(cfg, ds, [dev] * n, rand_fn=draws)
+        shapes["s"] = cpu.uniform_shapes(cpu.dedup_last_hop)
+        gpu.model.load_state_dict(cpu.model.state_dict())
+        rc, rg = cpu.run_epoch(0), gpu.run_epoch(0)
+        err = max(float((p.detach().cpu() - q.detach()).abs().max())
+                  for p, q in zip(gpu.model.parameters(),
+                                  cpu.model.parameters()))
+        check(rc["sampled_edges"] == rg["sampled_edges"],
+              f"{label}: edges cpu {rc['sampled_edges']} gpu "
+              f"{rg['sampled_edges']}")
+        check(abs(rc["loss"] - rg["loss"]) < 1e-4 and err < 1e-4,
+              f"{label}: loss cpu {rc['loss']} gpu {rg['loss']}, parameters "
+              f"differ by {err}")
+        print(f"  {label}: {rg['num_step']} batches, loss cpu "
+              f"{rc['loss']:.6f} gpu {rg['loss']:.6f}, parameters max |diff| "
+              f"{err:.2e}, edges {rg['sampled_edges']}")
+
+
+def factored_epochs_phase(card):
+    """arch5 (table on the trainer, then cache mode pipelined and
+    synchronous) and arch6 (W=1, W=2) at the main path's configuration, in
+    a process of its own (``python -m
+    fgnn_tpu_torch.tools.factored_epochs``): its epochs run before any
+    torch.profiler session of that process, the busy share's epoch last.
+    Gates: finite, falling losses, no overflow, the row gather's launches
+    per group, the cache mode's two runs bit-equal. Returns the launches
+    over its runs."""
+    import subprocess
+
+    out_dir = os.path.join(REPO, "chiprun_out", "smoke_factored")
+    os.makedirs(out_dir, exist_ok=True)
+    log_path = os.path.join(out_dir, "factored_epochs.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-m", "fgnn_tpu_torch.tools.factored_epochs"],
+            stdout=f, stderr=subprocess.STDOUT, cwd=REPO, timeout=600)
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    check(proc.returncode == 0, f"factored_epochs: rc {proc.returncode}, see "
+          f"{log_path}")
+    print(f"  factored_epochs: {time.perf_counter() - t0:.1f} s with its "
+          "start")
+    return factored_report(json.loads(lines[-1]))
+
+
+def factored_report(result):
+    """Phase 23's prints and gates over the tool's JSON line; returns the
+    row gather's launches over its runs."""
+    runs = result["runs"]
+    total = 0
+    for name, per_batch, batches in (
+            ("arch5", ARCH5_LAUNCHES_PER_BATCH, 1),
+            ("arch5_cache_pipelined", ARCH5_LAUNCHES_PER_BATCH, 1),
+            ("arch5_cache_synchronous", ARCH5_LAUNCHES_PER_BATCH, 1),
+            ("arch6_w1", ARCH6_LAUNCHES_PER_BATCH, 1),
+            ("arch6_w2", ARCH6_LAUNCHES_PER_BATCH, 2)):
+        r = runs[name]
+        eps = r["epochs"]
+        # a group (arch5, T=1) or a local step (arch6, W batches)
+        groups = sum(x["num_step"] for x in eps) // batches
+        launches = r["launches"].get("gather_rows", 0)
+        total += launches
+        for x in eps:
+            hit = (f", hit rate {x['hit_rate']:.4f}" if "hit_rate" in x
+                   else "")
+            print(f"  {name} epoch {x['epoch']}: loss {x['loss']:.4f} acc "
+                  f"{x['acc']:.4f} epoch_time {x['epoch_time']:.4f} s over "
+                  f"{x['num_step']} batches, {x['sampled_edges']} sampled "
+                  f"edges = {x['edges_per_s'] / 1e6:.2f} M edges/s{hit} "
+                  f"({result['card']})")
+        print(f"  {name}: init {r['init_s']:.2f} s, peak memory "
+              f"{r['peak_bytes']} B, gather_rows launches {launches} "
+              f"({launches / groups:g} a group of {batches})")
+        losses = [x["loss"] for x in eps]
+        check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
+        check(losses[-1] < losses[0], f"{name}: losses do not fall: {losses}")
+        check(not r["overflowed"], f"{name}: an epoch overflowed its caps")
+        check(launches == per_batch * batches * groups,
+              f"{name}: {launches} gather_rows launches for {groups} groups "
+              f"of {batches}")
+    check(runs["arch5_cache_bit_equal"], "arch5 cache mode: the pipelined "
+          "and synchronous runs differ in losses or parameters")
+    busy = runs["arch5_busy"]
+    print(f"  arch5 cache mode: pipelined and synchronous bit-equal in losses "
+          f"and parameters")
+    print(f"  arch5 epoch under torch.profiler: wall {busy['wall_s']:.4f} s, "
+          f"card busy {busy['busy_s']:.4f} s = {busy['busy_share']:.1%} of "
+          f"it, {busy['busy_share_unprofiled']:.1%} of the last unprofiled "
+          f"epoch's {busy['unprofiled_epoch_s']:.4f} s; top kernels (ms): "
+          + ", ".join(f"{k[:48]} {v:.1f}" for k, v in busy["top_kernels_ms"])
+          + f" ({result['card']})")
+    return total
+
+
+def bench_config(**kw):
+    """The main path's configuration (bench.py), for the multi-device
+    engines."""
+    from fgnn_tpu_torch.config import RunConfig, SampleType
+
+    return RunConfig(model="graphsage", fanout=(25, 10), batch_size=8000,
+                     num_hidden=256, sample_type=SampleType.KHOP2,
+                     dropout=0.5, lr=0.003, compute_dtype="bfloat16",
+                     **kw)
+
+
+def path_gathers(run, count):
+    """The first ``count`` row gathers that ``run()`` makes, as the
+    (table, ids) each was given, in order. All of the multi-device
+    engines' gathers go through ``ops.gather.gather_rows`` (the feature
+    gather and ``gather_src``, both by ``GatherRows``)."""
+    from fgnn_tpu_torch.ops import gather
+
+    calls, real = [], gather.gather_rows
+
+    def spy(table, ids):
+        if len(calls) < count:
+            calls.append((table.detach(), ids))
+        return real(table, ids)
+
+    gather.gather_rows = spy
+    try:
+        run()
+    finally:
+        gather.gather_rows = real
+    return calls
+
+
+def factored_kernel_phase(dev, card, ds):
+    """The row gather at the shapes the arch5 and arch6 paths give it at the
+    bench configuration: their plans have no degree tiers, arch5 dedups the
+    last hop (so layer 1's gather_src gathers) and arch6 does not (so its
+    feature gather takes the whole [frontier | picks] list). One epoch of
+    FactoredEngine S=1, T=1 and of SGNNEngine W=1; the first group's (the
+    first batch's) gathers, kept as they were made, are held against the
+    plain version bit for bit and timed with CUDA events. Returns the
+    largest |diff|."""
+    from fgnn_tpu_torch.parallel.factored import FactoredEngine, SGNNEngine
+
+    max_err = 0.0
+    for arch, cls, devices, names in (
+            ("arch5", FactoredEngine, [dev, dev], ARCH5_GATHERS),
+            ("arch6", SGNNEngine, [dev], ARCH6_GATHERS)):
+        eng = cls(bench_config(), ds, devices)
+        print(f"  {arch} plan {eng.plan}")
+        calls = path_gathers(lambda: eng.run_epoch(0), len(names))
+        check(len(calls) == len(names), f"{arch}: {len(calls)} row gathers "
+              f"in an epoch, {len(names)} expected in its first group")
+        for name, (table, ids) in zip(names, calls):
+            label = f"{arch} {name}"
+            max_err = max(max_err, check_equal(table, ids, label))
+            time_gather(table, ids, label, card)
+        del eng, calls
+    print(f"  {len(ARCH5_GATHERS) + len(ARCH6_GATHERS)} path shapes bit-equal "
+          f"to the plain version, max |diff| {max_err}")
+    return max_err
+
+
+def arch5_reduce_phase(dev, ds):
+    """arch5, S=1, T=2 on one card at full width: one group's data-parallel
+    step (two replicas, the gradients summed into the first, one Adam step)
+    against one replica's step on the same two batches with the same
+    weighted loss and dropout draws; the parameters within 1e-4."""
+    import copy
+
+    import torch
+    from fgnn_tpu_torch.ops.extract import label_gather
+    from fgnn_tpu_torch.parallel.factored import FactoredEngine, step_generator
+    from fgnn_tpu_torch.train.loop import make_optimizer, masked_cross_entropy
+
+    cfg = bench_config(num_train_worker=2)
+    eng = FactoredEngine(cfg, ds, [dev] * 3)
+    model = copy.deepcopy(eng.model)
+    opt = make_optimizer(model.parameters(), cfg.lr)
+    items = []
+    for seeds, n, step in list(eng.shufflers[0].batches(0))[:2]:
+        b = eng.sample(dev, torch.as_tensor(seeds, device=dev), n,
+                       step_generator(dev, cfg.seed, step), True)
+        items.append((b, eng._feats_for(b, None, dev, count=False)))
+    gens = lambda: [step_generator(dev, 77, i) for i in range(2)]
+    loss, _ = eng._dp_step(items, [dev, dev], gens())
+    # one replica, the reference's weighted loss over both batches
+    B = cfg.batch_size
+    ws = [(b.num_output > 0).float() for b, _ in items]
+    wsum = torch.stack(ws).sum().clamp(min=1.0)
+    opt.zero_grad(set_to_none=True)
+    model.train()
+    total = 0
+    for (b, f), w, g in zip(items, ws, gens()):
+        logits = model(b, f, eng.dst_caps, generator=g)
+        l, _ = masked_cross_entropy(logits[:B], label_gather(
+            eng._label(dev), b.output_nodes)[:B])
+        total = total + l * w
+    (total / wsum).backward()
+    opt.step()
+    err = max(float((p.detach() - q.detach()).abs().max()) for p, q in
+              zip(eng.model.parameters(), model.parameters()))
+    one = float((total / wsum).detach())
+    lerr = abs(float(loss) - one)
+    print(f"  one group of 2 batches: loss {float(loss):.6f} (one replica "
+          f"{one:.6f}), parameters after the step max |diff| {err:.2e}")
+    check(lerr < 1e-4 and err < 1e-4, f"T=2 reduce: loss differs by {lerr}, "
+          f"parameters by {err}")
+
+
+def switcher_async_phase(dev, card, ds):
+    """The switcher (FGNN_TPU_SWITCHER_FORCE=1, S=1, T=1) and the async
+    trainers (T=2, averaging every 2 groups), one epoch each at the main
+    path's configuration on one card: finite losses, the switcher's tail
+    engaged on both devices. Their epoch times carry the residue of the
+    torch.profiler sessions of phases 15-19."""
+    import torch
+    from fgnn_tpu_torch.parallel.async_dp import AsyncFactoredEngine
+    from fgnn_tpu_torch.parallel.switcher import SwitcherEngine
+
+    base = bench_config()
+    os.environ["FGNN_TPU_SWITCHER_FORCE"] = "1"
+    try:
+        sw = SwitcherEngine(base.replace(have_switcher=True), ds, [dev] * 2)
+        r = sw.run_epoch(0)
+    finally:
+        os.environ.pop("FGNN_TPU_SWITCHER_FORCE", None)
+    tail = getattr(sw, "tail_batches", 0)
+    print(f"  switcher: reserve {sw._tail_reserve_batches} of {sw.num_step} "
+          f"batches, tail trained {tail} on {sw.num_full} devices; loss "
+          f"{r['loss']:.4f}, epoch_time {r['epoch_time']:.4f} s ({card})")
+    check(math.isfinite(r["loss"]), f"switcher loss {r['loss']}")
+    check(tail > 0 and sw.num_full == 2, "the switcher's tail did not engage")
+    del sw
+    an = AsyncFactoredEngine(base.replace(async_train=True, async_sync_every=2,
+                                          num_train_worker=2), ds, [dev] * 3)
+    r = an.run_epoch(0)
+    acc = an.evaluate()
+    print(f"  async T=2, averaging every 2 groups: loss {r['loss']:.4f}, "
+          f"epoch_time {r['epoch_time']:.4f} s; evaluate() {acc:.4f} ({card})")
+    check(math.isfinite(r["loss"]), f"async loss {r['loss']}")
+    check(1.0 / NUM_CLASS < acc <= 1.0, f"async evaluate() accuracy {acc}")
+    torch.cuda.empty_cache()
+
+
+def placement_gates():
+    """The reference's bit-equality gates (__graft_entry__.py:121-155), run
+    in a process of its own with deterministic algorithms (the gradients'
+    scatter-adds use atomics otherwise), one epoch each on the small input
+    with dropout on: arch5 S=1, T=1 on [cuda:0, cuda:1] against [cuda:1,
+    cuda:0] (gate 1) and against [cuda:0, cuda:0] (gate 2); then S=1, T=2
+    on three cards against one (the batch crossing between trainers and
+    the gradients summed across cards). Losses and parameters equal bit
+    for bit."""
+    import torch
+    from fgnn_tpu_torch.parallel.factored import FactoredEngine
+
+    torch.use_deterministic_algorithms(True)
+    ds = small_dataset()
+    cfg = small_config("graphsage", fanout=(10, 3), dropout=0.5)
+
+    def run(devices, **kw):
+        eng = FactoredEngine(cfg.replace(**kw), ds, devices)
+        return eng.run_epoch(0)["loss"], [p.detach().cpu() for p in
+                                           eng.model.parameters()]
+
+    gates = [("gate 1 (permuted)", ["cuda:0", "cuda:1"], ["cuda:1", "cuda:0"],
+              {}),
+             ("gate 2 (one card)", ["cuda:0", "cuda:1"], ["cuda:0", "cuda:0"],
+              {})]
+    if torch.cuda.device_count() >= 3:
+        gates.append(("T=2 across three cards", ["cuda:0", "cuda:1", "cuda:2"],
+                      ["cuda:0"] * 3, {"num_train_worker": 2}))
+    for label, a, b, kw in gates:
+        (la, pa), (lb, pb) = run(a, **kw), run(b, **kw)
+        check(la == lb and all(torch.equal(p, q) for p, q in zip(pa, pb)),
+              f"{label}: {b} differs from {a} (loss {la!r} / {lb!r})")
+        print(f"  {label}: {b} bit-equal to {a}, loss {la!r}")
+
+
+def placement_phase():
+    import subprocess
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"  the placement gates did not run: they need a second card "
+              f"and this machine has {n}")
+        return
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.placement_gates()"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"placement gates: rc {proc.returncode}\n"
+          f"{proc.stderr[-4000:]}")
+
+
+APP5_ARGS = ["--arch", "arch5", "--devices", "cuda:0,cuda:0", "--model",
+             "graphsage", "--fanout", "25", "10", "--batch-size", "8000",
+             "--num-hidden", "256", "--synthetic-nodes", "1000000",
+             "--synthetic-train-frac", "0.25", "--num-epoch", "2"]
+
+
+def app5_phase(card):
+    """``python -m fgnn_tpu_torch.examples.train_gnn --arch arch5 --devices
+    cuda:0,cuda:0`` at the bench configuration, two epochs, as a user runs
+    it: rc 0, the role devices, the result keys, the row gather's launches
+    per group. Returns its launches."""
+    from fgnn_tpu_torch.exp.runner import run_app
+
+    out = os.path.join(REPO, "chiprun_out", "smoke_app")
+    t0 = time.perf_counter()
+    r = run_app(APP5_ARGS, out, "arch5", timeout=600)
+    check(r.returncode == 0, f"app arch5: rc {r.returncode}, see {r.log_path}")
+    v = r.values
+    missing = [k for k in ("devices", "init_time", "epoch_time",
+                           "first_epoch_loss", "num_step",
+                           "launches:gather_rows") if k not in v]
+    check(not missing, f"app arch5: keys missing {missing}")
+    check(v["devices"] == "cuda:0,cuda:0", f"app arch5: devices {v['devices']}")
+    steps = int(v["num_step"]) * 2
+    launches = int(v["launches:gather_rows"])
+    check(launches == ARCH5_LAUNCHES_PER_BATCH * steps,
+          f"app arch5: {launches} gather_rows launches for {steps} groups")
+    check(math.isfinite(float(v["first_epoch_loss"])),
+          f"app arch5: first epoch loss {v['first_epoch_loss']}")
+    print(f"  app arch5 ({time.perf_counter() - t0:.1f} s with its start): "
+          f"init_time {v['init_time']} s, epoch_time {v['epoch_time']} s, "
+          f"first epoch loss {v['first_epoch_loss']}, gather_rows launches "
+          f"{launches} over {steps} groups ({card})")
+    return launches
+
+
 def main() -> int:
     # The app processes of phases 20-21 read the bytecode this process
     # compiles: where the installed packages carry none and cannot take it,
@@ -1725,7 +2110,7 @@ def main() -> int:
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/21] device")
+    print("[1/28] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -1737,89 +2122,120 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/21] build")
+    print("[2/28] build")
     kernels = ("gather_rows", "stream_add_one")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/21] row gather against plain version")
+    print("[3/28] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/21] small input, GraphSAGE: card against CPU")
+    print("[4/28] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/21] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/28] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
     sage_launches = main_path_phase(dev, card, ds)
 
-    print("[6/21] streaming pass against plain version")
+    print("[6/28] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/21] gather campaign: stream and kernel phases")
+    print("[7/28] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/21] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/28] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/21] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    print("[9/28] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
     gcn_launches = gcn_phase(dev, card, ds)
 
-    print("[10/21] small input, PinSAGE: card against CPU")
+    print("[10/28] small input, PinSAGE: card against CPU")
     small_input_phase(dev, model="pinsage",
                       sample_type=SampleType.RANDOM_WALK)
 
-    print("[11/21] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+    print("[11/28] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
           "evaluate")
     pinsage_launches = pinsage_phase(dev, card, ds)
 
-    print("[12/21] small input, GAT: card against CPU, eval-mode logits and "
+    print("[12/28] small input, GAT: card against CPU, eval-mode logits and "
           "gradients")
     gat_small_phase(dev)
 
-    print("[13/21] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+    print("[13/28] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
           "evaluate")
     gat_launches = gat_phase(dev, card, ds)
 
-    print("[14/21] small input, host-resident table, PRESAMPLE and "
+    print("[14/28] small input, host-resident table, PRESAMPLE and "
           "DYNAMIC_CACHE: card against CPU")
     cache_small_phase(dev)
 
-    print("[15/21] GraphSAGE main path, feature table in host memory: hit "
+    print("[15/28] GraphSAGE main path, feature table in host memory: hit "
           "rates, pipelined cache epochs, host path, dynamic cache")
     cache_launches = cache_phase(dev, card, ds)
 
-    print("[16/21] small input, KHOP1 and the weighted samplers: card "
+    print("[16/28] small input, KHOP1 and the weighted samplers: card "
           "against CPU; the direct-index dedup at the main path's shapes")
     other_samplers_small_phase(dev)
     remap_phase(dev, card, ds)
 
-    print("[17/21] KHOP1 and the weighted samplers at full width, 1M-node "
+    print("[17/28] KHOP1 and the weighted samplers at full width, 1M-node "
           "graph")
     other_launches = other_samplers_phase(dev, card, ds)
 
-    print("[18/21] small input, arch0 (host sampling): card against CPU")
+    print("[18/28] small input, arch0 (host sampling): card against CPU")
     arch0_small_phase(dev)
 
-    print("[19/21] arch0 at the bench configuration, 1M-node graph")
+    print("[19/28] arch0 at the bench configuration, 1M-node graph")
     arch0_launches = arch0_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
-    del ds
 
     t20 = time.perf_counter()
-    print("[20/21] entry points: observed epoch, session, checkpoint (small "
+    print("[20/28] entry points: observed epoch, session, checkpoint (small "
           "input); the app at the bench configuration")
     observe_small_phase(dev)
     app_launches = app_phase(card)
     print(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
     t21 = time.perf_counter()
-    print("[21/21] Table 1 through the port's app, 2 epochs a row")
+    print("[21/28] Table 1 through the port's app, 2 epochs a row")
     table1_launches = table1_phase(card)
     print(f"  phase 21: {time.perf_counter() - t21:.1f} s; phases 20-21 "
           f"{time.perf_counter() - t20:.1f} s; smoke wall time "
           f"{time.perf_counter() - t_start:.1f} s")
+
+    t22 = time.perf_counter()
+    print("[22/28] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
+          "one card: card against CPU")
+    multi_device_small_phase(dev)
+
+    print("[23/28] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
+          "W=2) at the main path's configuration, in a process of their own")
+    torch.cuda.empty_cache()
+    factored_launches = factored_epochs_phase(card)
+
+    print("[24/28] row gather against plain version at the arch5 and arch6 "
+          "paths' shapes")
+    max_err = max(max_err, factored_kernel_phase(dev, card, ds))
+
+    print("[25/28] arch5 S=1 T=2 on one card: the data-parallel step against "
+          "one replica's")
+    arch5_reduce_phase(dev, ds)
+
+    print("[26/28] the switcher (forced tail) and the async trainers, one "
+          "epoch each")
+    switcher_async_phase(dev, card, ds)
+    del ds
+    torch.cuda.empty_cache()
+
+    print("[27/28] placement gates: permuted cards, one card against two")
+    placement_phase()
+
+    print("[28/28] the app on arch5, both roles on one card, 2 epochs")
+    app5_launches = app5_phase(card)
+    print(f"  phases 22-28: {time.perf_counter() - t22:.1f} s; smoke wall "
+          f"time {time.perf_counter() - t_start:.1f} s")
 
     best = min(s_timing, key=lambda c: s_timing[c]["ms"])
     print(f"  stream_add_one times below: chunk {best}, the fastest; "
@@ -1831,7 +2247,8 @@ def main() -> int:
         replaces="fgnn_tpu/ops/pallas_gather2.py:131",
         launches=(sage_launches + gcn_launches + pinsage_launches
                   + gat_launches + cache_launches + other_launches
-                  + arch0_launches + app_launches + table1_launches),
+                  + arch0_launches + app_launches + table1_launches
+                  + factored_launches + app5_launches),
         max_abs_err=max_err,
         bound_by="bytes",
         **timing["feature gather"],

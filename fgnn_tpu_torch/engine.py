@@ -94,6 +94,43 @@ def device_sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def device_graph(ds: Dataset, sample_type: SampleType,
+                 device: torch.device) -> CSRGraph:
+    """The dataset's CSR on ``device``: int64 ``indptr``, int32 ``indices``
+    (an int32 ``indices``, an np.memmap included, is not copied on the
+    host; a CPU graph reads it in place) and the per-edge tables that
+    ``sample_type`` reads, by the reference's rule
+    (fgnn_tpu/engine.py:88-112): the alias tables for WEIGHTED_KHOP and
+    HASH_DEDUP, the prefix table for PREFIX and HASH_DEDUP."""
+    tables = {
+        name: host_table(np.asarray(getattr(ds, name), dtype)).to(device)
+        for name, dtype in (("prob_table", np.float32),
+                            ("alias_table", np.int32),
+                            ("prob_prefix_table", np.float32))
+        if name in WEIGHT_TABLES.get(sample_type, ())}
+    return CSRGraph(
+        indptr=torch.as_tensor(np.asarray(ds.indptr).astype(np.int64),
+                               device=device),
+        indices=host_table(np.asarray(ds.indices, np.int32)).to(device),
+        **tables,
+    )
+
+
+def resolve_feat_budget(feat_budget: Optional[int],
+                        device: torch.device) -> Optional[int]:
+    """Bytes a feature table may take on ``device``: ``feat_budget`` if
+    given, else ``FGNN_TPU_FEAT_HBM_BUDGET`` (read where the reference reads
+    it, fgnn_tpu/engine.py:162-164), else ``FEAT_MEMORY_SHARE`` of a CUDA
+    device's memory; None (no limit) on the CPU."""
+    if feat_budget is None:
+        feat_budget = env_int("FGNN_TPU_FEAT_HBM_BUDGET", -1)
+        feat_budget = None if feat_budget < 0 else feat_budget
+    if feat_budget is None and device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+        feat_budget = int(total * FEAT_MEMORY_SHARE)
+    return feat_budget
+
+
 @dataclasses.dataclass
 class Span:
     seconds: float = 0.0
@@ -148,38 +185,17 @@ class OneChipEngine:
                                         cfg.weight_decay)
 
         # --- topology to device ------------------------------------------
-        # (an int32 ``indices``, an np.memmap included, is not copied on the
-        # host; a CPU engine reads it in place). The weighted samplers' tables
-        # go up by the reference's rule (fgnn_tpu/engine.py:88-112): the
-        # alias tables for WEIGHTED_KHOP and HASH_DEDUP, the prefix table for
-        # PREFIX and HASH_DEDUP.
         t_copy = Timer()   # device placement (SampleDataCopy analog)
         indptr = np.asarray(ds.indptr)
         indices = np.asarray(ds.indices)
-        tables = {
-            name: host_table(np.asarray(getattr(ds, name), dtype)).to(dev)
-            for name, dtype in (("prob_table", np.float32),
-                                ("alias_table", np.int32),
-                                ("prob_prefix_table", np.float32))
-            if name in WEIGHT_TABLES.get(cfg.sample_type, ())}
-        self.graph = CSRGraph(
-            indptr=torch.as_tensor(indptr.astype(np.int64), device=dev),
-            indices=host_table(np.asarray(indices, np.int32)).to(dev),
-            **tables,
-        )
+        self.graph = device_graph(ds, cfg.sample_type, dev)
         device_sync(dev)
         copy_s = t_copy.passed()
 
         # --- feature placement: the device if the table fits ---------------
         feat_dtype = self.compute_dtype or torch.float32
         feat_bytes = ds.feat.shape[0] * ds.feat.shape[1] * feat_dtype.itemsize
-        if feat_budget is None:
-            # read where the reference reads it (fgnn_tpu/engine.py:162-164)
-            feat_budget = env_int("FGNN_TPU_FEAT_HBM_BUDGET", -1)
-            feat_budget = None if feat_budget < 0 else feat_budget
-        if feat_budget is None and dev.type == "cuda":
-            total = torch.cuda.get_device_properties(dev).total_memory
-            feat_budget = int(total * FEAT_MEMORY_SHARE)
+        feat_budget = resolve_feat_budget(feat_budget, dev)
         self.feat_on_device = feat_budget is None or feat_bytes <= feat_budget
 
         # --- static plan via NumPy calibration -----------------------------

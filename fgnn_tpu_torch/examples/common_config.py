@@ -5,7 +5,9 @@ The source system's example/samgraph/multi_gpu/common_config.py: the same
 argparse surface (--dataset, --arch, --cache-policy, ...) and defaults, the
 ``config:<k>=<v>`` lines, and --validate-configs. ``--device`` (``cuda`` by
 default; ``cpu`` only when asked) takes the place of the reference's
-``JAX_PLATFORMS`` handling.
+``JAX_PLATFORMS`` handling, and ``--devices`` (arch5 and arch6: the role
+devices, comma-separated, a device may repeat) that of the engines'
+``devices=`` argument.
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ def add_common_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device the engine runs on; the CPU only "
                         "when asked (--device cpu)")
+    p.add_argument("--devices", default=None,
+                   help="arch5/arch6: the role devices, comma-separated, "
+                        "samplers first (e.g. cuda:0,cuda:0 puts both roles "
+                        "on one card); by default the first S+T (arch6: W) "
+                        "devices of --device")
     p.add_argument("--dataset", default="synthetic")
     p.add_argument("--root-path", default=None,
                    help="dataset root (reference binary layout)")

@@ -3,10 +3,16 @@
     python -m fgnn_tpu_torch.examples.train_gnn --arch arch1 --model graphsage \\
         --fanout 25 10 --synthetic-nodes 1000000 [--device cpu]
 
-One process on one device: arch0 is ``HostSamplingEngine``, arch1-4 and 7
-``OneChipEngine``; the multi-device archs (arch5, arch6) are not ported and
-exit non-zero (ROADMAP A16). It runs on the CUDA device unless
-``--device cpu`` asks for the CPU; without a card it exits non-zero.
+One process: arch0 is ``HostSamplingEngine``, arch1-4 and 7
+``OneChipEngine``, arch5 ``FactoredEngine`` (``SwitcherEngine`` with
+``--have-switcher``, ``AsyncFactoredEngine`` with ``--async-train``) and
+arch6 ``SGNNEngine`` (examples/train_gnn.py:50-67). It runs on the CUDA
+device unless ``--device cpu`` asks for the CPU; without a card it exits
+non-zero. arch5 and arch6 run on ``--devices`` (comma-separated, samplers
+first; a device may repeat: ``cuda:0,cuda:0`` puts both roles on one card),
+by default the first S + T (arch6: W) devices of ``--device``; with fewer
+cards than that and no ``--devices`` the app exits non-zero naming both
+counts, and never drops to fewer roles.
 
 Prints the reference's lines: ``config:<k>=<v>`` for the run configuration,
 ``Epoch ... | Time ... | Loss ... | Acc ...`` an epoch, and
@@ -32,25 +38,13 @@ import torch
 
 from ..config import RunArch
 from ..ops import cuda_lib
-from ..session import NOT_PORTED
+from ..parallel.mesh import role_devices
+from ..session import build_engine
 from ..utils.logging import log_test_result
 from ..utils.profiler import STEP_ITEMS, Profiler
 from .common_config import (MODEL_SAMPLE_TYPE, add_common_arguments,
                             build_run_config, load_app_dataset,
                             print_run_config)
-
-
-def build_engine(cfg, ds, device):
-    """The engine of ``cfg.arch`` on ``device``."""
-    if cfg.arch in (RunArch.ARCH5, RunArch.ARCH6):
-        raise NotImplementedError(f"{cfg.arch.name}: {NOT_PORTED}")
-    if cfg.arch == RunArch.ARCH0:
-        from ..host_engine import HostSamplingEngine
-
-        return HostSamplingEngine(cfg, ds, device)
-    from ..engine import OneChipEngine
-
-    return OneChipEngine(cfg, ds, device)
 
 
 def report(prof: Profiler, num_node: int) -> None:
@@ -105,14 +99,19 @@ def main(argv=None) -> int:
     print_run_config(cfg)
     if args.validate_configs:
         return 0
-    if cfg.arch in (RunArch.ARCH5, RunArch.ARCH6):
-        print(f"train_gnn: {cfg.arch.name}: {NOT_PORTED}", file=sys.stderr)
-        return 2
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("train_gnn: no CUDA device (torch.cuda.is_available() is "
               "False); pass --device cpu to run on the CPU", file=sys.stderr)
         return 1
+    if cfg.arch in (RunArch.ARCH5, RunArch.ARCH6):
+        try:
+            device = role_devices(cfg, args.devices.split(",")
+                                  if args.devices else args.device)
+        except ValueError as e:
+            print(f"train_gnn: {e}", file=sys.stderr)
+            return 2
+        log_test_result("devices", ",".join(str(d) for d in device))
 
     ds = load_app_dataset(args)
     t_init = time.time()

@@ -116,10 +116,11 @@ class HostFeatures:
        staging dtype, and copy them to the device on a copy stream. Returns
        the device rows and an event the consumer waits on (:meth:`ready`).
 
-    ``SLOTS`` staging sets are used in turn, so up to ``SLOTS`` fetches may
-    be outstanding (the pipelined epoch has two: batch k loading while
-    batch k+1's ids arrive): a slot's pinned rows are not rewritten before
-    the upload that read them has finished. On a CPU device every stage is
+    ``slots`` staging sets (``SLOTS`` by default) are used in turn, so up to
+    ``slots`` fetches may be outstanding (the pipelined epoch has two: batch
+    k loading while batch k+1's ids arrive; a multi-device engine's group
+    pipeline two groups): a slot's pinned rows are not rewritten before the
+    upload that read them has finished. On a CPU device every stage is
     a plain host operation on fresh tensors.
 
     Host clock time of the gathers and CUDA-event time of the uploads are
@@ -129,7 +130,8 @@ class HostFeatures:
 
     SLOTS = 2
 
-    def __init__(self, feat: np.ndarray, device: torch.device, mod: int = 0):
+    def __init__(self, feat: np.ndarray, device: torch.device, mod: int = 0,
+                 slots: int = SLOTS):
         self.feat = feat
         self.table = host_table(feat)
         if self.table.dtype != torch.float32:
@@ -139,7 +141,7 @@ class HostFeatures:
         self.mod = mod
         self.cuda = self.device.type == "cuda"
         self.copy_stream = torch.cuda.Stream(self.device) if self.cuda else None
-        self._slots = [_Slot() for _ in range(self.SLOTS)]
+        self._slots = [_Slot() for _ in range(slots)]
         self._next = 0
         self.last_gather_s = 0.0   # host seconds of the last load's gather
         self.reset_counters()

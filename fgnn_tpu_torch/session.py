@@ -16,13 +16,17 @@ The source system's Python surface, ``samgraph.common.SamGraphBasics`` and
     sam.report_step_average(epoch, step)
     sam.shutdown()
 
-One process on one device: ``sample_init`` / ``train_init`` build the
-engine on ``ctx`` (arch0: ``HostSamplingEngine``; arch1-4 and 7:
-``OneChipEngine``). ``sample_once`` draws from the engine's own sampler
-generator with its dedup mode, and ``get_blocks`` extracts through the
-engine's feature path, so a loop over the session trains on the batches and
-features of ``run_epoch``. The multi-device archs (arch5, arch6) and the
-balance switcher are not ported (ROADMAP A16).
+One process: ``sample_init`` / ``train_init`` build the engine on ``ctx``
+(arch0: ``HostSamplingEngine``; arch1-4 and 7: ``OneChipEngine``; arch5:
+``SwitcherEngine`` after ``switch_init``, else ``AsyncFactoredEngine`` with
+``async_train``, else ``FactoredEngine``; arch6: ``SGNNEngine``). For arch5
+and arch6 ``ctx`` is a list of role devices, or one device name whose first
+S + T (arch6: W) devices are taken (``parallel.mesh.role_devices``).
+``sample_once`` draws from the one-device engine's own sampler generator
+with its dedup mode, and ``get_blocks`` extracts through the engine's
+feature path, so a loop over the session trains on the batches and features
+of ``run_epoch``; the multi-device engines run whole epochs
+(``run_epoch``), as in the reference.
 """
 from __future__ import annotations
 
@@ -41,8 +45,38 @@ from .utils.profiler import Profiler
 
 log = get_logger(__name__)
 
-NOT_PORTED = ("the multi-device engines (arch5, arch6) and the balance "
-              "switcher are not ported yet (ROADMAP A16)")
+
+def build_engine(cfg: RunConfig, ds, ctx):
+    """The engine of ``cfg.arch`` (fgnn_tpu/session.py:109-138). ``ctx`` is
+    the device; for arch5 and arch6 a list of role devices, or a device
+    name whose first S + T (arch6: W) devices are taken
+    (``parallel.mesh.role_devices``)."""
+    if cfg.arch in (RunArch.ARCH5, RunArch.ARCH6):
+        from .parallel.mesh import role_devices
+
+        devices = role_devices(cfg, ctx)
+        if cfg.arch == RunArch.ARCH6:
+            from .parallel.factored import SGNNEngine
+
+            return SGNNEngine(cfg, ds, devices)
+        if cfg.have_switcher:
+            from .parallel.switcher import SwitcherEngine
+
+            return SwitcherEngine(cfg, ds, devices)
+        if cfg.async_train:
+            from .parallel.async_dp import AsyncFactoredEngine
+
+            return AsyncFactoredEngine(cfg, ds, devices)
+        from .parallel.factored import FactoredEngine
+
+        return FactoredEngine(cfg, ds, devices)
+    if cfg.arch == RunArch.ARCH0:
+        from .host_engine import HostSamplingEngine
+
+        return HostSamplingEngine(cfg, ds, ctx)
+    from .engine import OneChipEngine
+
+    return OneChipEngine(cfg, ds, ctx)
 
 
 class _Session:
@@ -92,7 +126,16 @@ class _Session:
 
     def switch_init(self, worker_id: int = 0, ctx="cuda",
                     cache_percentage: float = 0.0) -> None:
-        raise NotImplementedError(f"switch_init: {NOT_PORTED}")
+        """Register the balance switcher (samgraph_switch_init analog,
+        operation.cc:357-362): before the engine is built; the epoch tail
+        then trains on the sampler and trainer devices."""
+        if self.cfg is None:
+            raise RuntimeError("call config() first")
+        if self.engine is not None:
+            raise RuntimeError("switch_init must precede sample_init and "
+                               "train_init")
+        self.cfg = self.cfg.replace(have_switcher=True,
+                                    switch_cache_percentage=cache_percentage)
 
     def _ensure_engine(self, ctx) -> None:
         if self.engine is not None:
@@ -100,16 +143,7 @@ class _Session:
         cfg, ds = self.cfg, self.ds
         if ds is None:
             raise RuntimeError("call data_init() first")
-        if cfg.arch in (RunArch.ARCH5, RunArch.ARCH6):
-            raise NotImplementedError(f"{cfg.arch.name}: {NOT_PORTED}")
-        if cfg.arch == RunArch.ARCH0:
-            from .host_engine import HostSamplingEngine
-
-            self.engine = HostSamplingEngine(cfg, ds, ctx)
-        else:
-            from .engine import OneChipEngine
-
-            self.engine = OneChipEngine(cfg, ds, ctx)
+        self.engine = build_engine(cfg, ds, ctx)
 
     # -- stepwise sampling (arch1-4/7 style) -----------------------------
     def extract_start(self, count: int) -> None:
@@ -123,8 +157,8 @@ class _Session:
         eng = self.engine
         if not isinstance(eng, OneChipEngine):
             raise TypeError("the stepwise API drives the one-device engine "
-                            "(arch1-4, 7); arch0 runs whole epochs via "
-                            "run_epoch")
+                            "(arch1-4, 7); arch0, arch5 and arch6 run whole "
+                            "epochs via run_epoch")
         if self._batch_iter is None:
             self._batch_iter = eng.shuffler.batches(self._epoch)
         try:
@@ -203,7 +237,10 @@ class _Session:
         return self.cfg.num_epoch
 
     def steps_per_epoch(self) -> int:
-        return self.engine.shuffler.num_step
+        eng = self.engine
+        if hasattr(eng, "shuffler"):
+            return eng.shuffler.num_step
+        return eng.num_step   # the multi-device engines
 
     # -- profiler passthrough --------------------------------------------
     def report_step_average(self, epoch: int, step: int) -> str:

@@ -3,7 +3,7 @@
 the reference app on the same arguments and environment (its ``config:``
 and ``test_result:`` keys a superset of the reference's; the same
 node-access and trace artifacts); in this process, the multi-device archs
-exiting non-zero, the default device refusing a machine without a card, the
+exiting non-zero on too few devices, the default device refusing a machine without a card, the
 per-model wrappers and the arch7 app; and the runner's parsing and tables
 against the reference runner's."""
 import argparse
@@ -112,9 +112,16 @@ def test_app_writes_the_reference_artifacts(runs):
 
 @pytest.mark.parametrize("arch", ["arch5", "arch6"])
 def test_multi_device_arch_exits_non_zero_naming_a16(arch, capsys):
-    code, _, err = in_process(train_gnn.main, [
-        "--device", "cpu", "--arch", arch, "--synthetic-nodes", "1000"], capsys)
-    assert code != 0 and "A16" in err
+    """The multi-device archs (ROADMAP A16, ported since) exit non-zero on
+    fewer role devices than they need, naming both counts, before loading
+    anything: they never drop to fewer roles."""
+    code, out, err = in_process(train_gnn.main, [
+        "--device", "cpu", "--arch", arch, "--num-train-worker", "2",
+        "--devices", "cpu", "--synthetic-nodes", "1000"], capsys)
+    need = 3 if arch == "arch5" else 2
+    assert code != 0
+    assert f"{arch} needs {need} devices and 1 were given" in err
+    assert "test_result:" not in out
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -98,3 +99,16 @@ def test_chip_smoke_source_imports_no_jax_package(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("def f():\n    from fgnn_tpu.config import RunConfig\n")
     assert _forbidden_imports(str(probe)) == [(str(probe), "fgnn_tpu.config")]
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/shuffler.py", "parallel/mesh.py", "parallel/factored.py",
+    "parallel/switcher.py", "parallel/async_dp.py", "session.py",
+    "examples/train_gnn.py", "tools/factored_epochs.py"])
+def test_multi_device_modules_import_no_jax(module):
+    """The multi-device engines and what drives them are among the scanned
+    sources, and none of their imports, at any depth, names a forbidden
+    root module."""
+    path = os.path.join(PKG, module)
+    assert path in set(_port_sources())
+    assert not _forbidden_imports(path)

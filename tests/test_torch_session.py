@@ -2,7 +2,7 @@
 tests/test_session.py and of test_profile_levels.py's
 ``test_init_items_real``, a session-driven epoch against ``run_epoch``
 (the same batches, features, dropout masks and updates: parameters bit
-for bit), and the multi-device archs naming what is not ported."""
+for bit), and the multi-device archs refusing too few devices."""
 import numpy as np
 import pytest
 import torch
@@ -73,8 +73,7 @@ def test_session_stepwise_loop(ds):
 
 def test_init_items_real():
     """init_load_dataset and init_copy are the wall clock of the load and
-    the device placement, not constants. arch1 is named: the port has no
-    arch5, the config's default."""
+    the device placement, not constants, on arch1."""
     sam.config({"model": "graphsage", "fanout": (3, 5), "batch_size": 64,
                 "num_hidden": 32, "sample_type": "khop0", "num_epoch": 1,
                 "dataset": "synthetic", "synthetic_nodes": 2000, "arch": 1})
@@ -134,11 +133,15 @@ def test_session_epoch_equals_run_epoch(ds, path):
 
 @pytest.mark.parametrize("arch", ["arch5", "arch6"])
 def test_multi_device_archs_name_a16(ds, arch):
-    sam.config({**CFG, "arch": arch})
+    """The multi-device archs (ROADMAP A16, ported since) take their role
+    devices as ``ctx`` and refuse too few, naming the counts;
+    ``switch_init`` comes before the engine is built."""
+    sam.config({**CFG, "arch": arch, "num_train_worker": 2})
     sam._session.ds = ds
-    with pytest.raises(NotImplementedError, match="A16"):
-        sam.sample_init(0, "cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="needs .* devices and 1 were given"):
+        sam.sample_init(0, ["cpu"])
+    sam.sample_init(0, "cpu")
+    with pytest.raises(RuntimeError, match="switch_init must precede"):
         sam.switch_init(0, "cpu", 0.1)
 
 

@@ -147,3 +147,56 @@ def assert_batches_equal(jbatch, tbatch):
         np.testing.assert_array_equal(
             np.asarray(getattr(jbatch, f)), to_numpy(getattr(tbatch, f)),
             err_msg=f)
+
+
+class ReferenceDraws:
+    """A port engine's ``rand_fn(epoch, step)`` that draws what the
+    reference draws for that batch: its key is ``fold_in(key(seed), epoch *
+    stride + step)``, with ``stride`` the reference's steps per epoch
+    (arch5, set by :meth:`bind`) or 100003 (arch6), and each hop's uniforms
+    come from it as in :func:`jax_uniforms` (:func:`jax_walk_uniforms` for
+    the random walk). Bind it to the engine once that exists: the engine's
+    plan fixes the shapes."""
+
+    def __init__(self, seed, sample_type, stride=None):
+        self.seed = seed
+        self.sample_type = sample_type
+        self.stride = stride
+        self.shapes = None
+
+    def bind(self, eng, dedup_last_hop):
+        self.shapes = eng.uniform_shapes(dedup_last_hop)
+        if self.stride is None:
+            self.stride = eng.num_step
+        return eng
+
+    def uniforms(self, key):
+        if getattr(self.sample_type, "value", None) == "random_walk":
+            return jax_walk_uniforms(key, self.shapes)
+        return jax_uniforms(key, self.shapes, self.sample_type)
+
+    def __call__(self, epoch, step):
+        return self.uniforms(jax.random.fold_in(jax.random.key(self.seed),
+                                                epoch * self.stride + step))
+
+
+def reference_eval_draws(eng, cfg):
+    """``rand(step)`` for a port engine's ``evaluate``: the reference's
+    evaluation key ``fold_in(key(seed + 12345), step)``, dedup shapes."""
+    draws = ReferenceDraws(cfg.seed + 12345, cfg.sample_type, stride=0)
+    draws.bind(eng, True)
+    return lambda step: draws(0, step)
+
+
+def params_close(jparams, model, tol):
+    """The largest |difference| between the reference's flax parameters and
+    the port model's; asserts it is within ``tol``."""
+    from fgnn_tpu_torch.models.convert import params_from_flax
+
+    ref = params_from_flax(jparams)
+    port = model.state_dict()
+    assert set(ref) == set(port)
+    err = max(float((ref[k] - port[k].detach().cpu()).abs().max())
+              for k in ref)
+    assert err < tol, err
+    return err
