@@ -134,8 +134,27 @@ Phases, none of which catches a failure (any failure exits non-zero):
      saying they did not run;
  28. the app, ``train_gnn --arch arch5 --devices cuda:0,cuda:0`` at the
      bench configuration, two epochs: rc 0, its devices, keys and
-     launches.
-The app processes read the bytecode this process compiles
+     launches;
+ 29. a process per role on one card, small input, in a process of its own
+     with deterministic algorithms: the factored app
+     (``train_factored_multihost``, the 2000-node graph, dropout 0.5) as a
+     sampler process and a trainer process on cuda:0, with the table on
+     the trainer and in cache mode (PRESAMPLE 20%), against
+     ``FactoredEngine`` on [cuda:0, cuda:0] in that process: losses and
+     parameters bit-equal;
+ 30. a process per role at the bench configuration (``python -m
+     fgnn_tpu_torch.tools.multiprocess_epochs``, three epochs, sampler and
+     trainer on cuda:0): finite, falling losses, three row-gather launches
+     a group in the trainer process, the epoch-0 loss (an epoch under
+     deterministic algorithms) equal to ``FactoredEngine``'s in one
+     process; epochs 1-2's times beside it, the bytes and seconds a wave
+     takes to cross. Then the
+     data-parallel demo (``train_multihost``) as 2 processes on cuda:0: the
+     same parameter checksum on both, a falling loss;
+ 31. one runner row end to end: Table 4's arch5 and arch6 rows at n = 2
+     (GCN [5, 10, 15], its own 200,000-node graph, level 1 and level 2
+     runs): rc 0, finite epoch times, stage columns, launches.
+The app and role processes read the bytecode this process compiles
 (``fgnn_tpu_torch/_build/pycache``): without it each one compiles torch's
 sources again on a machine whose packages hold none.
 The 1M-node graph is built once and shared by 5, 9, 11, 13, 15, 16, 17,
@@ -2090,6 +2109,199 @@ def app5_phase(card):
     return launches
 
 
+# phase 29's role processes: the factored app under deterministic
+# algorithms (the gradients' scatter-adds use atomics otherwise)
+DETERMINISTIC_APP = [
+    sys.executable, "-c",
+    "import sys, torch; torch.use_deterministic_algorithms(True); "
+    "from fgnn_tpu_torch.examples.train_factored_multihost import main; "
+    "sys.exit(main(sys.argv[1:]))"]
+RANK_TIMEOUT = 300
+
+
+def processes_small():
+    """Phase 29's runs (see the module docstring), in a process of its own
+    with deterministic algorithms: both modes' role processes start
+    together, and each mode's single-process engine runs here meanwhile."""
+    import argparse
+    import re
+
+    import torch
+    from fgnn_tpu_torch.examples.train_factored_multihost import (
+        app_config, app_dataset)
+    from fgnn_tpu_torch.parallel import multihost as mh
+    from fgnn_tpu_torch.parallel.factored import FactoredEngine
+
+    torch.use_deterministic_algorithms(True)
+    out = os.path.join(REPO, "chiprun_out", "smoke_processes")
+    modes = {"table on the trainer": 0.0, "cache mode": 0.2}
+    groups = {}
+    for label, pct in modes.items():
+        args = ["--synthetic-nodes", "2000", "--devices", "cuda:0",
+                "--dropout", "0.5", "--num-epoch", "2",
+                "--cache-percentage", str(pct),
+                "--save-params", os.path.join(out, label.split()[0])]
+        groups[label] = mh.start_ranks([DETERMINISTIC_APP + args] * 2,
+                                       env={"FGNN_TPU_DIST_TIMEOUT": "300"},
+                                       cwd=REPO)
+    # the one-process runs while the role processes run: only bits count
+    one = {}
+    try:
+        for label, pct in modes.items():
+            cfg = app_config(argparse.Namespace(
+                batch_size=128, num_hidden=32, cache_percentage=pct,
+                dropout=0.5))
+            eng = FactoredEngine(cfg, app_dataset(2000), ["cuda:0", "cuda:0"])
+            one[label] = (
+                [f"{eng.run_epoch(e)['loss']:.8f}" for e in range(2)],
+                {k: v.cpu() for k, v in eng.model.state_dict().items()})
+    finally:
+        done = {label: mh.wait_ranks(groups[label], RANK_TIMEOUT)
+                for label in modes}
+    for label in modes:
+        res = done[label]
+        for i, (rc, text) in enumerate(res):
+            check(rc == 0, f"{label}: rank {i} exited {rc}:\n{text[-3000:]}")
+        got = dict(re.findall(r"test_result:([^=]+)=(\S+)", res[1][1]))
+        losses, state = one[label]
+        saved = torch.load(os.path.join(out, label.split()[0], "params.pt"))
+        same = all(torch.equal(saved[k], v) for k, v in state.items())
+        check(losses == [got["epoch0_loss"], got["epoch1_loss"]] and same,
+              f"{label}: 2 processes {got} against one process {losses}, "
+              f"parameters equal: {same}")
+        print(f"  {label}: sampler and trainer processes on cuda:0 "
+              f"bit-equal to FactoredEngine on [cuda:0, cuda:0]: losses "
+              f"{losses}, parameters equal")
+
+
+def processes_small_phase():
+    import subprocess
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.processes_small()"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"processes on one card: rc {proc.returncode}"
+          f"\n{proc.stderr[-4000:]}")
+
+
+def multiprocess_phase(card):
+    """Phase 30 (see the module docstring). Returns the trainer process's
+    row-gather launches."""
+    import re
+    import subprocess
+
+    import torch
+    from fgnn_tpu_torch.parallel import multihost as mh
+
+    out_dir = os.path.join(REPO, "chiprun_out", "smoke_multiprocess")
+    os.makedirs(out_dir, exist_ok=True)
+    log_path = os.path.join(out_dir, "multiprocess_epochs.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-m", "fgnn_tpu_torch.tools.multiprocess_epochs",
+             "--epochs", "3", "--deterministic-epochs", "1", "--out-dir",
+             out_dir],
+            stdout=f, stderr=subprocess.STDOUT, cwd=REPO, timeout=900)
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    check(proc.returncode == 0, f"multiprocess_epochs: rc {proc.returncode}, "
+          f"see {log_path}")
+    r = json.loads(lines[-1])
+    print(f"  multiprocess_epochs: {time.perf_counter() - t0:.1f} s with its "
+          f"starts; host {r['host_cpu']}, {r['host_cores']} cores")
+    launches = 0
+    for x in r["multi"]:
+        eps = x["epochs"]
+        n_waves = x["num_waves"] * len(eps)
+        print(f"  {x['role']} process on {x['device']}: init {x['init_s']:.2f} "
+              f"s, epochs " + " / ".join(f"{e['epoch_time']:.4f}" for e in eps)
+              + " s, " + " / ".join(f"{e['edges_per_s'] / 1e6:.2f}"
+                                     for e in eps)
+              + f" M edges/s; {x['batch_bytes']} bytes a batch, "
+              f"{sum(e['wave_bytes'] for e in eps) / n_waves:.0f} a wave, "
+              "waited a wave (ms) " + " / ".join(
+                  f"{e['wave_wait_s'] / x['num_waves'] * 1e3:.3f}"
+                  for e in eps)
+              + f", a lone wave's broadcast "
+              f"{x['probe_broadcast_s'] * 1e3:.3f} ms; peak "
+              f"{x['peak_bytes']} B ({card})")
+        if x["role"] != "trainer":
+            continue
+        losses = [e["loss"] for e in eps]
+        k1 = x["launches"].get("gather_rows", 0)
+        launches += k1
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"trainer losses {losses}")
+        check(k1 == ARCH5_LAUNCHES_PER_BATCH * x["groups"],
+              f"trainer process: {k1} gather_rows launches for "
+              f"{x['groups']} groups")
+        print(f"  trainer losses {losses}; gather_rows launches {k1} "
+              f"({k1 / x['groups']:g} a group)")
+    one = r["single"]["epochs"]
+    print("  FactoredEngine in one process, same devices: epochs "
+          + " / ".join(f"{e['epoch_time']:.4f}" for e in one) + " s, losses "
+          f"{[e['loss'] for e in one]}, peak {r['single']['peak_bytes']} B "
+          f"({card})")
+    check(r["epoch0_loss_equal"], "the epoch-0 loss of the processes differs "
+          "from one process's")
+    print(f"  epoch-0 loss equal (deterministic algorithms): "
+          f"{r['epoch0_loss_equal']}; epochs 1-2 (atomics): every loss "
+          f"{r['losses_equal']}, parameters {r['params_equal']}")
+    n = torch.cuda.device_count()
+    print(f"  the placements across cards did not run: the smoke needs one "
+          f"card, and this machine has {n} (python -m "
+          "fgnn_tpu_torch.tools.multiprocess_epochs --devices cuda:0,cuda:1 "
+          "or cuda:0,cuda:1,cuda:2 runs them)")
+
+    t0 = time.perf_counter()
+    res = mh.wait_ranks(mh.start_ranks(
+        [[sys.executable, "-m", "fgnn_tpu_torch.examples.train_multihost",
+          "--device", "cuda:0"]] * 2,
+        env={"FGNN_TPU_DIST_TIMEOUT": "300"}, cwd=REPO), RANK_TIMEOUT)
+    vals = []
+    for i, (rc, text) in enumerate(res):
+        check(rc == 0, f"data-parallel demo rank {i}: rc {rc}\n{text[-3000:]}")
+        vals.append(dict(re.findall(r"test_result:([^=]+)=(\S+)", text)))
+    check(vals[0] == vals[1], f"data-parallel demo: ranks differ {vals}")
+    check(float(vals[0]["epoch1_loss"]) < float(vals[0]["epoch0_loss"]),
+          f"data-parallel demo: loss does not fall {vals[0]}")
+    print(f"  data-parallel demo, 2 processes on cuda:0 "
+          f"({time.perf_counter() - t0:.1f} s with their starts): {vals[0]}")
+    return launches
+
+
+def runner_phase(card):
+    """Phase 31 (see the module docstring). Returns the row gather's
+    launches over the rows' level-1 runs."""
+    from fgnn_tpu_torch.exp import table4
+
+    out = os.path.join(REPO, "chiprun_out", "smoke_table4")
+    t0 = time.perf_counter()
+    rc = table4.main(["--models", "gcn", "--num-workers", "2", "--devices",
+                      "cuda:0", "--out-dir", out])
+    check(rc == 0, f"table4: rc {rc}, see {out}")
+    with open(os.path.join(out, "table4.json")) as f:
+        rows = json.load(f)["results"]
+    launches = 0
+    for r in rows:
+        v = r["values"]
+        check(r["rc"] == 0 and math.isfinite(float(v["epoch_time"]))
+              and float(v["train_time"]) > 0,
+              f"table4 {r['config']['run_arch']}: {v}")
+        launches += int(v["launches:gather_rows"])
+        print(f"  table4 {r['config']['model']} {r['config']['run_arch']} "
+              f"on {v['devices']}: epoch_time {v['epoch_time']} s, sample "
+              f"{v['sample_time']}, copy {v['copy_time']}, extract "
+              f"{v['extract_time']}, train {v['train_time']}, init "
+              f"{v['init_time']} s, gather_rows launches "
+              f"{v['launches:gather_rows']} ({card})")
+    print(f"  table4 rows: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     # The app processes of phases 20-21 read the bytecode this process
     # compiles: where the installed packages carry none and cannot take it,
@@ -2110,7 +2322,7 @@ def main() -> int:
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/28] device")
+    print("[1/31] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -2122,119 +2334,134 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/28] build")
+    print("[2/31] build")
     kernels = ("gather_rows", "stream_add_one")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/28] row gather against plain version")
+    print("[3/31] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/28] small input, GraphSAGE: card against CPU")
+    print("[4/31] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/28] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/31] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
     sage_launches = main_path_phase(dev, card, ds)
 
-    print("[6/28] streaming pass against plain version")
+    print("[6/31] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/28] gather campaign: stream and kernel phases")
+    print("[7/31] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/28] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/31] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/28] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    print("[9/31] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
     gcn_launches = gcn_phase(dev, card, ds)
 
-    print("[10/28] small input, PinSAGE: card against CPU")
+    print("[10/31] small input, PinSAGE: card against CPU")
     small_input_phase(dev, model="pinsage",
                       sample_type=SampleType.RANDOM_WALK)
 
-    print("[11/28] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+    print("[11/31] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
           "evaluate")
     pinsage_launches = pinsage_phase(dev, card, ds)
 
-    print("[12/28] small input, GAT: card against CPU, eval-mode logits and "
+    print("[12/31] small input, GAT: card against CPU, eval-mode logits and "
           "gradients")
     gat_small_phase(dev)
 
-    print("[13/28] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+    print("[13/31] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
           "evaluate")
     gat_launches = gat_phase(dev, card, ds)
 
-    print("[14/28] small input, host-resident table, PRESAMPLE and "
+    print("[14/31] small input, host-resident table, PRESAMPLE and "
           "DYNAMIC_CACHE: card against CPU")
     cache_small_phase(dev)
 
-    print("[15/28] GraphSAGE main path, feature table in host memory: hit "
+    print("[15/31] GraphSAGE main path, feature table in host memory: hit "
           "rates, pipelined cache epochs, host path, dynamic cache")
     cache_launches = cache_phase(dev, card, ds)
 
-    print("[16/28] small input, KHOP1 and the weighted samplers: card "
+    print("[16/31] small input, KHOP1 and the weighted samplers: card "
           "against CPU; the direct-index dedup at the main path's shapes")
     other_samplers_small_phase(dev)
     remap_phase(dev, card, ds)
 
-    print("[17/28] KHOP1 and the weighted samplers at full width, 1M-node "
+    print("[17/31] KHOP1 and the weighted samplers at full width, 1M-node "
           "graph")
     other_launches = other_samplers_phase(dev, card, ds)
 
-    print("[18/28] small input, arch0 (host sampling): card against CPU")
+    print("[18/31] small input, arch0 (host sampling): card against CPU")
     arch0_small_phase(dev)
 
-    print("[19/28] arch0 at the bench configuration, 1M-node graph")
+    print("[19/31] arch0 at the bench configuration, 1M-node graph")
     arch0_launches = arch0_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     t20 = time.perf_counter()
-    print("[20/28] entry points: observed epoch, session, checkpoint (small "
+    print("[20/31] entry points: observed epoch, session, checkpoint (small "
           "input); the app at the bench configuration")
     observe_small_phase(dev)
     app_launches = app_phase(card)
     print(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
     t21 = time.perf_counter()
-    print("[21/28] Table 1 through the port's app, 2 epochs a row")
+    print("[21/31] Table 1 through the port's app, 2 epochs a row")
     table1_launches = table1_phase(card)
     print(f"  phase 21: {time.perf_counter() - t21:.1f} s; phases 20-21 "
           f"{time.perf_counter() - t20:.1f} s; smoke wall time "
           f"{time.perf_counter() - t_start:.1f} s")
 
     t22 = time.perf_counter()
-    print("[22/28] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
+    print("[22/31] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
           "one card: card against CPU")
     multi_device_small_phase(dev)
 
-    print("[23/28] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
+    print("[23/31] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
           "W=2) at the main path's configuration, in a process of their own")
     torch.cuda.empty_cache()
     factored_launches = factored_epochs_phase(card)
 
-    print("[24/28] row gather against plain version at the arch5 and arch6 "
+    print("[24/31] row gather against plain version at the arch5 and arch6 "
           "paths' shapes")
     max_err = max(max_err, factored_kernel_phase(dev, card, ds))
 
-    print("[25/28] arch5 S=1 T=2 on one card: the data-parallel step against "
+    print("[25/31] arch5 S=1 T=2 on one card: the data-parallel step against "
           "one replica's")
     arch5_reduce_phase(dev, ds)
 
-    print("[26/28] the switcher (forced tail) and the async trainers, one "
+    print("[26/31] the switcher (forced tail) and the async trainers, one "
           "epoch each")
     switcher_async_phase(dev, card, ds)
     del ds
     torch.cuda.empty_cache()
 
-    print("[27/28] placement gates: permuted cards, one card against two")
+    print("[27/31] placement gates: permuted cards, one card against two")
     placement_phase()
 
-    print("[28/28] the app on arch5, both roles on one card, 2 epochs")
+    print("[28/31] the app on arch5, both roles on one card, 2 epochs")
     app5_launches = app5_phase(card)
     print(f"  phases 22-28: {time.perf_counter() - t22:.1f} s; smoke wall "
+          f"time {time.perf_counter() - t_start:.1f} s")
+
+    t29 = time.perf_counter()
+    print("[29/31] a process per role on one card, small input: against one "
+          "process, bit for bit")
+    processes_small_phase()
+
+    print("[30/31] a process per role at the bench configuration, 3 epochs; "
+          "the data-parallel demo as 2 processes")
+    mp_launches = multiprocess_phase(card)
+
+    print("[31/31] Table 4's arch5 and arch6 rows at n = 2 through the port's "
+          "runner")
+    runner_launches = runner_phase(card)
+    print(f"  phases 29-31: {time.perf_counter() - t29:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 
     best = min(s_timing, key=lambda c: s_timing[c]["ms"])
@@ -2248,7 +2475,8 @@ def main() -> int:
         launches=(sage_launches + gcn_launches + pinsage_launches
                   + gat_launches + cache_launches + other_launches
                   + arch0_launches + app_launches + table1_launches
-                  + factored_launches + app5_launches),
+                  + factored_launches + app5_launches + mp_launches
+                  + runner_launches),
         max_abs_err=max_err,
         bound_by="bytes",
         **timing["feature gather"],

@@ -97,6 +97,19 @@ def combine_reference(cache_data: torch.Tensor, index: MissCacheIndex,
     return torch.where((index.hit | miss)[:, None], out, 0)
 
 
+def cache_table_array(ranking: np.ndarray, cache_percentage: float,
+                      num_node: int) -> np.ndarray:
+    """Node id -> cache slot (or -1), ``[num_node + 1]`` int32: the first
+    ``int(cache_percentage * num_node)`` nodes of ``ranking`` in order. The
+    sampler-side hashtable (SampleCacheTableInit, dist_engine.cc:193-229)."""
+    num_cache = int(cache_percentage * num_node)
+    table = np.full((num_node + 1,), -1, dtype=np.int32)
+    if num_cache:
+        table[np.asarray(ranking[:num_cache], dtype=np.int32)] = np.arange(
+            num_cache, dtype=np.int32)
+    return table
+
+
 class FeatureCache:
     """Static feature cache (GPUCacheManager analog) over a host-resident
     table. ``dtype`` is the cache's and the staging dtype (bf16 halves the
@@ -121,12 +134,8 @@ class FeatureCache:
         self.dtype = dtype or torch.float32
         dev = host.device
         cache_nodes = np.asarray(ranking[: self.num_cache], dtype=np.int32)
-        # node id -> cache slot (or -1); the sampler-side hashtable
-        # (SampleCacheTableInit, dist_engine.cc:193-229)
-        table = np.full((num_node + 1,), -1, dtype=np.int32)
-        if self.num_cache:
-            table[cache_nodes] = np.arange(self.num_cache, dtype=np.int32)
-        self.cache_table = torch.as_tensor(table, device=dev)
+        self.cache_table = torch.as_tensor(
+            cache_table_array(ranking, cache_percentage, num_node), device=dev)
         mod = host.mod
         if feat_host.shape[0] < num_node and not mod:
             raise ValueError(

@@ -85,6 +85,29 @@ def step_generator(device: torch.device, base: int,
     return torch.Generator(device).manual_seed(seed)
 
 
+def resolve_feat_on_trainer(cfg: RunConfig, ds: Dataset,
+                            compute_dtype: Optional[torch.dtype],
+                            device: torch.device,
+                            feat_on_trainer: Optional[bool] = None) -> bool:
+    """Whether arch5 keeps the feature table on its trainers: as asked,
+    else when there is no cache and the table in the compute dtype fits
+    the budget of ``device`` (``resolve_feat_budget``: the reference's
+    fixed 6 GB of float32 was a TPU v5e's limit). Raises ``ValueError``
+    when the table would stay in host memory without a cache."""
+    dtype = compute_dtype or torch.float32
+    feat_bytes = ds.feat.shape[0] * ds.feat.shape[1] * dtype.itemsize
+    if feat_on_trainer is None:
+        budget = resolve_feat_budget(None, device)
+        feat_on_trainer = not cfg.use_cache and (
+            budget is None or feat_bytes <= budget)
+    if not feat_on_trainer and not cfg.use_cache:
+        raise ValueError(
+            f"the {feat_bytes}-byte feature table stays in host memory "
+            "and factored mode reads host-resident features only "
+            "through a cache: set cache_percentage > 0")
+    return feat_on_trainer
+
+
 def _tensors(obj) -> Iterator[torch.Tensor]:
     if isinstance(obj, torch.Tensor):
         yield obj
@@ -464,18 +487,8 @@ class FactoredEngine(_EngineBase):
         prof.set_num_step(self.num_step)
 
         # --- trainer side (TrainInit analog) ------------------------------
-        dtype = self.compute_dtype or torch.float32
-        feat_bytes = ds.feat.shape[0] * ds.feat.shape[1] * dtype.itemsize
-        if feat_on_trainer is None:
-            budget = resolve_feat_budget(None, t_devs[0])
-            feat_on_trainer = not cfg.use_cache and (
-                budget is None or feat_bytes <= budget)
-        if not feat_on_trainer and not cfg.use_cache:
-            raise ValueError(
-                f"the {feat_bytes}-byte feature table stays in host memory "
-                "and factored mode reads host-resident features only "
-                "through a cache: set cache_percentage > 0")
-        self.feat_on_trainer = feat_on_trainer
+        self.feat_on_trainer = resolve_feat_on_trainer(
+            cfg, ds, self.compute_dtype, t_devs[0], feat_on_trainer)
 
         # the cache: ranked on sampler 0 before the trainers init
         # (dist_engine.cc:323-344 ordering), with its own full-train-set
@@ -510,7 +523,7 @@ class FactoredEngine(_EngineBase):
         log.info("FactoredEngine: %d samplers + %d trainers, %d steps/epoch, "
                  "cache=%s feat_on_trainer=%s", S, T, self.num_step,
                  f"{cfg.cache_percentage:.0%}" if self.cache else "off",
-                 feat_on_trainer)
+                 self.feat_on_trainer)
 
     # -- the cache -------------------------------------------------------
     def _make_cache(self, dev: torch.device, pct: float) -> FeatureCache:

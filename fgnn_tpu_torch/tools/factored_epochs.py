@@ -34,6 +34,25 @@ import time
 import torch
 
 
+def bench_config(**kw):
+    """The main path's configuration (bench.py), for the multi-device
+    engines."""
+    from ..config import RunConfig, SampleType
+
+    return RunConfig(model="graphsage", fanout=(25, 10), batch_size=8000,
+                     num_hidden=256, sample_type=SampleType.KHOP2,
+                     dropout=0.5, lr=0.003, compute_dtype="bfloat16", **kw)
+
+
+def bench_dataset():
+    """The main path's 1M-node synthetic graph, built from seed 0."""
+    from ..data import make_synthetic_dataset
+
+    return make_synthetic_dataset(num_node=1_000_000, avg_degree=15,
+                                  feat_dim=128, num_class=172,
+                                  train_frac=0.25, seed=0)
+
+
 def busy_share(device: torch.device, fn) -> dict:
     """Run ``fn`` under torch.profiler: its wall seconds, the union of the
     card's kernel and copy intervals in seconds, their share of the wall
@@ -89,22 +108,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("factored_epochs: no CUDA device", file=sys.stderr)
         return 1
-    from ..config import CachePolicy, RunConfig, SampleType
-    from ..data import make_synthetic_dataset
+    from ..config import CachePolicy
     from ..parallel.factored import FactoredEngine, SGNNEngine
     from .gather_campaign import card_name
 
     dev = torch.device(args.device)
     card = card_name()
     t0 = time.perf_counter()
-    ds = make_synthetic_dataset(num_node=1_000_000, avg_degree=15,
-                                feat_dim=128, num_class=172, train_frac=0.25,
-                                seed=0)
+    ds = bench_dataset()
     print(f"dataset: {ds.num_node} nodes, {ds.num_edge} edges "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    base = RunConfig(model="graphsage", fanout=(25, 10), batch_size=8000,
-                     num_hidden=256, sample_type=SampleType.KHOP2,
-                     dropout=0.5, lr=0.003, compute_dtype="bfloat16")
+    base = bench_config()
     runs = {}
 
     def engine(cls, cfg, n):
