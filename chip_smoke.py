@@ -104,7 +104,9 @@ Phases, none of which catches a failure (any failure exits non-zero):
      OneChipEngine in this process, its steady epoch beside the app's;
  21. the Table-1 ablation (``python -m fgnn_tpu_torch.exp.table1``) at its
      defaults with two epochs, one row at a time: five rows, each rc 0
-     with a finite epoch_time and non-zero stage columns;
+     with a finite epoch_time and non-zero stage columns. It runs beside
+     phases 32-34 with phase 34's runners (the smoke's time limit), so the
+     times it prints are not measurements;
  22. small input, arch5 (``FactoredEngine``) S=1 with T=1 and T=2 and
      arch6 (``SGNNEngine``) W=1 and W=2, every role on the card, against
      the CPU: one epoch from the same parameters and CPU-drawn uniforms,
@@ -154,6 +156,36 @@ Phases, none of which catches a failure (any failure exits non-zero):
  31. one runner row end to end: Table 4's arch5 and arch6 rows at n = 2
      (GCN [5, 10, 15], its own 200,000-node graph, level 1 and level 2
      runs): rc 0, finite epoch times, stage columns, launches.
+ 32. converted data on the card: the vendored ogbn-products fixture (300
+     nodes, OGB's raw csv.gz layout) through the port's datagen
+     (``fgnn_tpu_torch/data/datagen.py``) into
+     ``chiprun_out/smoke_datagen/``, loaded, GraphSAGE [5, 5] trained on the
+     card for 8 epochs (the loss falls, test accuracy above 1.5/47), the row
+     gather's launches counted; then one float32 step on the card against
+     the CPU from the same parameters and uniforms, within 1e-4 (as 4);
+ 33. the cache-policy experiments in process at their defaults (1M nodes,
+     skew 6, pref 0.5; table2 200,000 nodes): fig10, fig11, fig5a and
+     table2, each table printed. Gates: the optimal ranking at or above
+     every policy at every cache size (it is built from the accesses it is
+     scored on), random within 0.01 of the cache fraction (fig10, fig11),
+     every table2 similarity within [0, 100]. Then fig5b (weighted_khop)
+     at 200,000 nodes, gated as fig5a: depth cut, its alias tables at the
+     default 1M nodes take 30 s on the host (``python -m
+     fgnn_tpu_torch.exp.fig5 --sample-type weighted_khop`` runs it there);
+ 34. the single-device app runners through the port's runner: fig17b,
+     table6, fig4a then fig4b over its table, fig12 and the auto_runner
+     ``breakdown`` suite. The five runners start, one thread each (their
+     rows one at a time), before phase 32 and run beside 32-33 (the times
+     they print are not measurements: PERF.md takes them from runs at the
+     defaults, one runner alone); they are checked after 33. Every row rc
+     0 with a finite epoch time and K1 launches, which join the
+     ``kernels`` line's count. Depth cut from the defaults (the smoke's
+     time limit): two epochs a row in each; fig4a at 0 / 10 / 20% (not
+     0-30% in five rows); fig12 GraphSAGE only (not GCN too);
+ 35. ``python -m fgnn_tpu_torch.tools.bandwidth_bench`` at its defaults
+     (1M x 128 f32, 200,000 rows), after 34 with the card otherwise idle:
+     host gather, memcpy, H2D pageable and pinned, K1 bit-equal to its
+     plain version there and timed beside ``index_select`` and its bound.
 The app and role processes read the bytecode this process compiles
 (``fgnn_tpu_torch/_build/pycache``): without it each one compiles torch's
 sources again on a machine whose packages hold none.
@@ -168,6 +200,7 @@ import math
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -1713,15 +1746,22 @@ def engine_driven(app, app3, card):
     Profiler.reset()
 
 
-def table1_phase(card):
-    """Phase 21 (see the module docstring). Returns the row gather's
-    launches over its runs."""
+TABLE1_OUT = os.path.join(REPO, "chiprun_out", "smoke_table1")
+
+
+def start_table1(pool):
+    """Phase 21's runner, started on ``pool``: its future."""
     from fgnn_tpu_torch.exp import table1
 
-    out = os.path.join(REPO, "chiprun_out", "smoke_table1")
-    rc = table1.main(["--num-epoch", "2", "--out-dir", out])
+    return pool.submit(table1.main, ["--num-epoch", "2", "--out-dir",
+                                     TABLE1_OUT])
+
+
+def table1_phase(card, rc):
+    """Phase 21's checks (see the module docstring), once its runner has
+    returned ``rc``. Returns the row gather's launches over its runs."""
     check(rc == 0, f"table1: rc {rc}")
-    with open(os.path.join(out, "table1.json")) as f:
+    with open(os.path.join(TABLE1_OUT, "table1.json")) as f:
         rows = json.load(f)["results"]
     check(len(rows) == 5, f"table1: {len(rows)} rows")
     total = 0
@@ -2302,6 +2342,191 @@ def runner_phase(card):
     return launches
 
 
+
+# --- phases 32-35: the converters, the cache-policy experiments, the
+# bandwidth toolkit and the single-device app runners -------------------------
+
+PRODUCTS_CLASSES = 47
+# phase 33's fig5b: its alias tables are a per-vertex loop on the host
+# (30 s at the default 1M nodes), so the smoke cuts the graph
+FIG5B_NODES = 200_000
+
+
+def datagen_phase(dev):
+    """Phase 32 (see the module docstring). Returns the row gather's
+    launches over the 8 epochs and evaluate()."""
+    import torch
+    from fgnn_tpu_torch.config import RunConfig, SampleType
+    from fgnn_tpu_torch.data import load_dataset
+    from fgnn_tpu_torch.data.datagen import convert_ogb
+    from fgnn_tpu_torch.engine import OneChipEngine
+    from fgnn_tpu_torch.ops import cuda_lib
+
+    out = os.path.join(REPO, "chiprun_out", "smoke_datagen")
+    t0 = time.perf_counter()
+    path = convert_ogb("ogbn-products",
+                       os.path.join(REPO, "tests", "fixtures", "ogb_raw"), out)
+    ds = load_dataset("products", root=out)
+    print(f"  converted {path}: {ds.num_node} nodes, {ds.num_edge} edges, "
+          f"{ds.feat_dim}-dim features, {ds.num_class} classes "
+          f"({time.perf_counter() - t0:.2f} s)")
+    check(ds.num_node == 300 and ds.num_edge == 2 * 1930
+          and ds.prob_table is not None, "converted products fixture")
+    cfg = RunConfig(model="graphsage", fanout=(5, 5), batch_size=64,
+                    num_hidden=64, sample_type=SampleType.KHOP0,
+                    dropout=0.0, lr=0.01)
+    eng = OneChipEngine(cfg, ds, dev)
+    cuda_lib.reset_launches()
+    losses = [eng.run_epoch(e)["loss"] for e in range(8)]
+    acc = eng.evaluate()
+    launches = cuda_lib.launches.get("gather_rows", 0)
+    print(f"  GraphSAGE [5, 5] on the card, 8 epochs: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}, test accuracy {acc:.4f} (chance "
+          f"{1 / PRODUCTS_CLASSES:.4f}); gather_rows launches {launches}")
+    check(losses[-1] < losses[0], f"losses do not fall: {losses}")
+    check(acc > 1.5 / PRODUCTS_CLASSES, f"accuracy {acc} not above chance")
+    check(launches > 0, "no gather_rows launch")
+
+    # one step on the card against the CPU, float32, same parameters and
+    # uniforms (as phase 4)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    cpu = OneChipEngine(cfg32, ds, "cpu")
+    gpu = OneChipEngine(cfg32, ds, dev)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    seeds, n, _ = next(cpu.shuffler.batches(0))
+    rand = [torch.rand(s, generator=gen)
+            for s in cpu.uniform_shapes(cpu.dedup_last_hop)]
+    lc, _, ec, _ = cpu.step(torch.as_tensor(seeds), n, rand)
+    lg, _, eg, _ = gpu.step(torch.as_tensor(seeds, device=dev), n,
+                            [r.to(dev) for r in rand])
+    check(int(ec) == int(eg), f"edges {int(ec)} != {int(eg)}")
+    check(abs(float(lc) - float(lg)) < 1e-4,
+          f"loss cpu {float(lc)} gpu {float(lg)}")
+    print(f"  one step on the converted data: loss cpu {float(lc):.6f} gpu "
+          f"{float(lg):.6f}, edges {int(eg)}")
+    return launches
+
+
+def print_table(path):
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("#"):
+                print("    " + line.rstrip("\n"))
+
+
+def check_policies(name, results, num_node=None):
+    """optimal >= every policy at every percentage; with ``num_node`` at
+    1M, random within 0.01 of the cache fraction."""
+    for pct, best in results["optimal"].items():
+        for pol, row in results.items():
+            check(row[pct] <= best, f"{name}: {pol} {row[pct]} above optimal "
+                  f"{best} at {pct}")
+        if "random" in results and num_node == 1_000_000:
+            check(abs(results["random"][pct] - pct) <= 0.01,
+                  f"{name}: random {results['random'][pct]} at {pct}")
+
+
+def cache_exps_phase():
+    """Phase 33 (see the module docstring)."""
+    from fgnn_tpu_torch.exp import fig5, fig10, fig11, table2
+
+    out = os.path.join(REPO, "chiprun_out")
+    t0 = time.perf_counter()
+    r10 = fig10.main(["--out-dir", os.path.join(out, "smoke_fig10")])
+    check_policies("fig10", r10, 1_000_000)
+    print_table(os.path.join(out, "smoke_fig10", "fig10.dat"))
+    print(f"  fig10: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    r11 = fig11.main(["--out-dir", os.path.join(out, "smoke_fig11")])
+    rates = {r["policy"]: {0.1: r["hit_rate"]} for r in r11}
+    check_policies("fig11", rates, 1_000_000)
+    print_table(os.path.join(out, "smoke_fig11", "fig11.dat"))
+    print(f"  fig11: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    r5 = fig5.main(["--out-dir", os.path.join(out, "smoke_fig5")])
+    check_policies("fig5a", r5)
+    print_table(os.path.join(out, "smoke_fig5", "fig5a.dat"))
+    print(f"  fig5a: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    r5b = fig5.main(["--sample-type", "weighted_khop", "--synthetic-nodes",
+                     str(FIG5B_NODES), "--out-dir",
+                     os.path.join(out, "smoke_fig5")])
+    check_policies("fig5b", r5b)
+    print_table(os.path.join(out, "smoke_fig5", "fig5b.dat"))
+    print(f"  fig5b at {FIG5B_NODES} nodes: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rows = table2.main(["--out-dir", os.path.join(out, "smoke_table2")])
+    check(len(rows) == 3, f"table2: {len(rows)} rows")
+    for r in rows:
+        check(0.0 <= r["epoch_similarity"] <= 100.0,
+              f"table2 {r['sample_type']}: {r['epoch_similarity']}")
+    print_table(os.path.join(out, "smoke_table2", "table2.dat"))
+    print(f"  table2: {time.perf_counter() - t0:.1f} s")
+
+
+def bandwidth_phase():
+    """Phase 35 (see the module docstring)."""
+    from fgnn_tpu_torch.tools import bandwidth_bench
+
+    bandwidth_bench.main([])   # raises if K1 differs from its plain version
+
+
+def start_app_runners(pool):
+    """Phase 34's runners, started on ``pool`` (see the module docstring):
+    ``{name: (future, table)}``."""
+    from fgnn_tpu_torch.exp import auto_runner, fig4a, fig12, fig17b, table6
+
+    out = os.path.join(REPO, "chiprun_out")
+    two = ["--num-epoch", "2"]
+    runs = {
+        "fig17b": (fig17b, two, "fig17b"),
+        "table6": (table6, two, "table6"),
+        "fig4a": (fig4a, two + ["--percentages", "0", "0.1", "0.2"],
+                  "fig4a"),
+        "fig12": (fig12, two + ["--models", "graphsage"], "fig12"),
+        "breakdown": (auto_runner, two + ["breakdown"], "breakdown"),
+    }
+    return {name: (pool.submit(mod.main, argv + [
+        "--out-dir", os.path.join(out, f"smoke_{name}")]), table)
+        for name, (mod, argv, table) in runs.items()}
+
+
+def app_runners_phase(runs):
+    """Phase 34's checks, once its runners (``start_app_runners``) end.
+    Returns the row gather's launches over every row."""
+    from fgnn_tpu_torch.exp import fig4b
+
+    out = os.path.join(REPO, "chiprun_out")
+    rcs = {name: f.result() for name, (f, _) in runs.items()}
+    rc = fig4b.main(["--fig4a", os.path.join(out, "smoke_fig4a", "fig4a.json"),
+                     "--out-dir", os.path.join(out, "smoke_fig4b")])
+    check(rc == 0, f"fig4b: rc {rc}")
+    launches = 0
+    for name, (_, table) in runs.items():
+        d = os.path.join(out, f"smoke_{name}")
+        check(rcs[name] == 0, f"{name}: rc {rcs[name]}, see {d}")
+        with open(os.path.join(d, f"{table}.json")) as f:
+            rows = json.load(f)["results"]
+        for r in rows:
+            v = r["values"]
+            check(r["rc"] == 0 and math.isfinite(float(v["epoch_time"])),
+                  f"{name}: {r['config']} rc {r['rc']}")
+            n = int(v.get("launches:gather_rows", 0))
+            check(n > 0, f"{name}: a row without gather_rows launches")
+            launches += n
+        print(f"  {name}: {len(rows)} rows, rc 0, gather_rows launches "
+              f"{sum(int(r['values'].get('launches:gather_rows', 0)) for r in rows)}")
+        print_table(os.path.join(d, f"{table}.dat"))
+    print("  fig4b (over the fig4a rows above):")
+    print_table(os.path.join(out, "smoke_fig4b", "fig4b.dat"))
+    return launches
+
+
 def main() -> int:
     # The app processes of phases 20-21 read the bytecode this process
     # compiles: where the installed packages carry none and cannot take it,
@@ -2322,7 +2547,7 @@ def main() -> int:
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/31] device")
+    print("[1/35] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -2334,134 +2559,161 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/31] build")
+    print("[2/35] build")
     kernels = ("gather_rows", "stream_add_one")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/31] row gather against plain version")
+    print("[3/35] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/31] small input, GraphSAGE: card against CPU")
+    print("[4/35] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/31] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/35] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
     sage_launches = main_path_phase(dev, card, ds)
 
-    print("[6/31] streaming pass against plain version")
+    print("[6/35] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/31] gather campaign: stream and kernel phases")
+    print("[7/35] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/31] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/35] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/31] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    print("[9/35] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
     gcn_launches = gcn_phase(dev, card, ds)
 
-    print("[10/31] small input, PinSAGE: card against CPU")
+    print("[10/35] small input, PinSAGE: card against CPU")
     small_input_phase(dev, model="pinsage",
                       sample_type=SampleType.RANDOM_WALK)
 
-    print("[11/31] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+    print("[11/35] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
           "evaluate")
     pinsage_launches = pinsage_phase(dev, card, ds)
 
-    print("[12/31] small input, GAT: card against CPU, eval-mode logits and "
+    print("[12/35] small input, GAT: card against CPU, eval-mode logits and "
           "gradients")
     gat_small_phase(dev)
 
-    print("[13/31] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+    print("[13/35] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
           "evaluate")
     gat_launches = gat_phase(dev, card, ds)
 
-    print("[14/31] small input, host-resident table, PRESAMPLE and "
+    print("[14/35] small input, host-resident table, PRESAMPLE and "
           "DYNAMIC_CACHE: card against CPU")
     cache_small_phase(dev)
 
-    print("[15/31] GraphSAGE main path, feature table in host memory: hit "
+    print("[15/35] GraphSAGE main path, feature table in host memory: hit "
           "rates, pipelined cache epochs, host path, dynamic cache")
     cache_launches = cache_phase(dev, card, ds)
 
-    print("[16/31] small input, KHOP1 and the weighted samplers: card "
+    print("[16/35] small input, KHOP1 and the weighted samplers: card "
           "against CPU; the direct-index dedup at the main path's shapes")
     other_samplers_small_phase(dev)
     remap_phase(dev, card, ds)
 
-    print("[17/31] KHOP1 and the weighted samplers at full width, 1M-node "
+    print("[17/35] KHOP1 and the weighted samplers at full width, 1M-node "
           "graph")
     other_launches = other_samplers_phase(dev, card, ds)
 
-    print("[18/31] small input, arch0 (host sampling): card against CPU")
+    print("[18/35] small input, arch0 (host sampling): card against CPU")
     arch0_small_phase(dev)
 
-    print("[19/31] arch0 at the bench configuration, 1M-node graph")
+    print("[19/35] arch0 at the bench configuration, 1M-node graph")
     arch0_launches = arch0_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     t20 = time.perf_counter()
-    print("[20/31] entry points: observed epoch, session, checkpoint (small "
+    print("[20/35] entry points: observed epoch, session, checkpoint (small "
           "input); the app at the bench configuration")
     observe_small_phase(dev)
     app_launches = app_phase(card)
-    print(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
-    t21 = time.perf_counter()
-    print("[21/31] Table 1 through the port's app, 2 epochs a row")
-    table1_launches = table1_phase(card)
-    print(f"  phase 21: {time.perf_counter() - t21:.1f} s; phases 20-21 "
-          f"{time.perf_counter() - t20:.1f} s; smoke wall time "
+    print("[21/35] Table 1 through the port's app, 2 epochs a row: runs "
+          "later, beside phases 32-34")
+    print(f"  phase 20: {time.perf_counter() - t20:.1f} s; smoke wall time "
           f"{time.perf_counter() - t_start:.1f} s")
 
     t22 = time.perf_counter()
-    print("[22/31] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
+    print("[22/35] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
           "one card: card against CPU")
     multi_device_small_phase(dev)
 
-    print("[23/31] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
+    print("[23/35] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
           "W=2) at the main path's configuration, in a process of their own")
     torch.cuda.empty_cache()
     factored_launches = factored_epochs_phase(card)
 
-    print("[24/31] row gather against plain version at the arch5 and arch6 "
+    print("[24/35] row gather against plain version at the arch5 and arch6 "
           "paths' shapes")
     max_err = max(max_err, factored_kernel_phase(dev, card, ds))
 
-    print("[25/31] arch5 S=1 T=2 on one card: the data-parallel step against "
+    print("[25/35] arch5 S=1 T=2 on one card: the data-parallel step against "
           "one replica's")
     arch5_reduce_phase(dev, ds)
 
-    print("[26/31] the switcher (forced tail) and the async trainers, one "
+    print("[26/35] the switcher (forced tail) and the async trainers, one "
           "epoch each")
     switcher_async_phase(dev, card, ds)
     del ds
     torch.cuda.empty_cache()
 
-    print("[27/31] placement gates: permuted cards, one card against two")
+    print("[27/35] placement gates: permuted cards, one card against two")
     placement_phase()
 
-    print("[28/31] the app on arch5, both roles on one card, 2 epochs")
+    print("[28/35] the app on arch5, both roles on one card, 2 epochs")
     app5_launches = app5_phase(card)
     print(f"  phases 22-28: {time.perf_counter() - t22:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 
     t29 = time.perf_counter()
-    print("[29/31] a process per role on one card, small input: against one "
+    print("[29/35] a process per role on one card, small input: against one "
           "process, bit for bit")
     processes_small_phase()
 
-    print("[30/31] a process per role at the bench configuration, 3 epochs; "
+    print("[30/35] a process per role at the bench configuration, 3 epochs; "
           "the data-parallel demo as 2 processes")
     mp_launches = multiprocess_phase(card)
 
-    print("[31/31] Table 4's arch5 and arch6 rows at n = 2 through the port's "
+    print("[31/35] Table 4's arch5 and arch6 rows at n = 2 through the port's "
           "runner")
     runner_launches = runner_phase(card)
     print(f"  phases 29-31: {time.perf_counter() - t29:.1f} s; smoke wall "
+          f"time {time.perf_counter() - t_start:.1f} s")
+
+    t32 = time.perf_counter()
+    print("[21/35] and [34/35]: Table 1 and the app runners through the "
+          "port's runner (fig17b, table6, fig4a with fig4b, fig12, the "
+          "auto_runner breakdown suite): started now, beside phases 32-33, "
+          "checked after them")
+    with ThreadPoolExecutor(6) as pool:
+        table1_run = start_table1(pool)
+        runs = start_app_runners(pool)
+        print("[32/35] converted data on the card: the products fixture "
+              "through the port's datagen, 8 epochs, one step against the "
+              "CPU")
+        datagen_launches = datagen_phase(dev)
+
+        print("[33/35] the cache-policy experiments in process at their "
+              "defaults: fig10, fig11, fig5a, table2; fig5b at 200,000 "
+              "nodes")
+        cache_exps_phase()
+
+        print("[34/35] the app runners: waiting for them, then their checks")
+        apps_launches = app_runners_phase(runs)
+        print("[21/35] Table 1: waiting for it, then its checks")
+        table1_launches = table1_phase(card, table1_run.result())
+    print(f"  phases 21 and 32-34: {time.perf_counter() - t32:.1f} s")
+
+    print("[35/35] bandwidth_bench at its defaults: host gather, memcpy, H2D, "
+          "K1 against index_select")
+    bandwidth_phase()
+    print(f"  phases 32-35: {time.perf_counter() - t32:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 
     best = min(s_timing, key=lambda c: s_timing[c]["ms"])
@@ -2476,7 +2728,7 @@ def main() -> int:
                   + gat_launches + cache_launches + other_launches
                   + arch0_launches + app_launches + table1_launches
                   + factored_launches + app5_launches + mp_launches
-                  + runner_launches),
+                  + runner_launches + datagen_launches + apps_launches),
         max_abs_err=max_err,
         bound_by="bytes",
         **timing["feature gather"],

@@ -1,13 +1,15 @@
-"""The port's arch5/arch6 experiment runners against the reference's
-``exp/<name>/run.py``.
+"""The port's app-driven experiment runners against the reference's
+``exp/<name>/run.py`` and ``exp/auto_runner.py``.
 
 Each reference script runs here with its ``run_app`` recording the calls
 (nothing runs), and the port's runner likewise: the rows, their order, app
 arguments, environments, timeouts and row labels are the reference's; the
 port adds only ``--device`` and ``--devices`` (and drops the TPU-calibrated
 ``pred_epoch_time``). fig16a builds its engines in process: its
-configurations equal the reference's. Then fig14 runs end to end on the CPU
-at n = 2 on a 2000-node graph and writes its table."""
+configurations equal the reference's. fig4b, a simulation over fig4a's
+table, equals the reference's on the same file. Then fig14 runs end to end
+on the CPU at n = 2 on a 2000-node graph, and fig17b at 2000 nodes, and
+each writes its table."""
 import importlib.util
 import json
 import os
@@ -15,19 +17,23 @@ import os
 import pytest
 
 from exp.common import runner as ref_runner
-from fgnn_tpu_torch.exp import fig13, fig14, fig15, fig16a, fig17a, table4
+from fgnn_tpu_torch.exp import auto_runner, fig4a, fig4b, fig12, fig13
+from fgnn_tpu_torch.exp import fig14, fig15, fig16a, fig17a, fig17b, table4
 from fgnn_tpu_torch.exp import runner as port_runner
-from fgnn_tpu_torch.exp import table5
+from fgnn_tpu_torch.exp import table5, table6
 from torch_parity import port_cfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = {"fig13": fig13, "fig14": fig14, "fig15": fig15, "fig17a": fig17a,
-        "table4": table4, "table5": table5}
+        "table4": table4, "table5": table5, "fig4a": fig4a, "fig12": fig12,
+        "table6": table6, "fig17b": fig17b}
 
 
 def load_reference(name):
-    spec = importlib.util.spec_from_file_location(
-        f"ref_{name}", os.path.join(REPO, "exp", name, "run.py"))
+    path = (os.path.join(REPO, "exp", "auto_runner.py")
+            if name == "auto_runner"
+            else os.path.join(REPO, "exp", name, "run.py"))
+    spec = importlib.util.spec_from_file_location(f"ref_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -67,7 +73,7 @@ def recorder(calls, result_cls, script):
     return run_app
 
 
-def record_reference(name, tmp_path, monkeypatch):
+def record_reference(name, tmp_path, monkeypatch, argv=()):
     mod = load_reference(name)
     calls = []
     monkeypatch.setattr(mod, "run_app",
@@ -75,13 +81,13 @@ def record_reference(name, tmp_path, monkeypatch):
     monkeypatch.setattr(mod, "HERE", str(tmp_path))
     if hasattr(mod, "annotate_prediction"):
         monkeypatch.setattr(mod, "annotate_prediction", lambda *a, **k: None)
-    monkeypatch.setattr("sys.argv", [f"{name}/run.py"])
+    monkeypatch.setattr("sys.argv", [f"{name}/run.py", *argv])
     mod.main()
     return calls
 
 
 def record_port(name, tmp_path, monkeypatch, argv=()):
-    mod = PORT[name]
+    mod = auto_runner if name == "auto_runner" else PORT[name]
     calls = []
     monkeypatch.setattr(mod, "run_app",
                         recorder(calls, port_runner.RunResult, False))
@@ -90,10 +96,7 @@ def record_port(name, tmp_path, monkeypatch, argv=()):
     return calls
 
 
-@pytest.mark.parametrize("name", sorted(PORT))
-def test_rows_are_the_reference_rows(name, tmp_path, monkeypatch):
-    ref = record_reference(name, tmp_path, monkeypatch)
-    port = record_port(name, tmp_path, monkeypatch)
+def assert_same_rows(ref, port):
     assert len(port) == len(ref) > 0
     for (rt, ra, re_, rto, rr), (pt, pa, pe, pto, pr) in zip(ref, port):
         assert (pt, pa, pe, pto) == (rt, ra, re_, rto)
@@ -101,17 +104,77 @@ def test_rows_are_the_reference_rows(name, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name", sorted(PORT))
-def test_rows_name_the_role_devices(name, tmp_path, monkeypatch):
+def test_rows_are_the_reference_rows(name, tmp_path, monkeypatch):
+    ref = record_reference(name, tmp_path, monkeypatch)
+    port = record_port(name, tmp_path, monkeypatch)
+    assert_same_rows(ref, port)
+
+
+@pytest.mark.parametrize("suite", sorted(auto_runner.SUITES))
+def test_auto_runner_suites_are_the_reference_rows(suite, tmp_path,
+                                                   monkeypatch):
+    # the reference's write_table makes no directory (its run_app did)
+    (tmp_path / "auto" / suite).mkdir(parents=True)
+    ref = record_reference("auto_runner", tmp_path, monkeypatch, [suite])
+    port = record_port("auto_runner", tmp_path, monkeypatch, [suite])
+    assert_same_rows(ref, port)
+    table = (tmp_path / "port" / f"{suite}.dat").read_text().splitlines()
+    assert table[0].startswith("# card=")
+
+
+def test_auto_runner_lists_its_suites(capsys):
+    assert auto_runner.main(["--list"]) == 0
+    names = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()]
+    assert names == sorted(auto_runner.SUITES)
+
+
+def test_fig4b_equals_the_reference_on_one_fig4a_table(tmp_path,
+                                                       monkeypatch):
+    """The reference's fig4b and the port's over the same fig4a rows: the
+    reference's bare list, and the port's {"meta", "results"} file."""
+    rows = [{"config": {"cache_percentage": pct, "num_node": 1_000_000},
+             "values": {"cache_hit_rate": f"{hit:.4f}"}, "rc": 0}
+            for pct, hit in ((0.0, 0.0), (0.05, 0.31), (0.1, 0.47),
+                             (0.2, 0.66), (0.3, 0.78))]
+    rows.append({"config": {"cache_percentage": 0.4}, "values": {}, "rc": 1})
+    bare = tmp_path / "fig4a.json"
+    bare.write_text(json.dumps(rows))
+    ref = load_reference("fig4b")
+    monkeypatch.setattr(ref, "FIG4A", str(bare))
+    monkeypatch.setattr(ref, "HERE", str(tmp_path / "ref"))
+    (tmp_path / "ref").mkdir()
+    monkeypatch.setattr("sys.argv", ["fig4b/run.py"])
+    ref.main()
+    wrapped = tmp_path / "port_fig4a.json"
+    wrapped.write_text(json.dumps({"meta": {"card": "x"}, "results": rows}))
+    for i, src in enumerate((bare, wrapped)):
+        out = tmp_path / f"port{i}"
+        assert fig4b.main(["--fig4a", str(src), "--out-dir", str(out)]) == 0
+        for f in ("fig4b.dat", "fig4b.json"):
+            assert (out / f).read_text() == (tmp_path / "ref" / f).read_text()
+
+
+def test_fig4b_without_hit_rates_fails(tmp_path):
+    src = tmp_path / "fig4a.json"
+    src.write_text(json.dumps([{"config": {}, "values": {}, "rc": 1}]))
+    assert fig4b.main(["--fig4a", str(src), "--out-dir",
+                       str(tmp_path)]) == 1
+
+
+def role_device_calls(mod, argv, monkeypatch):
+    calls = []
+    monkeypatch.setattr(mod, "run_app",
+                        lambda app_args, *a, **k: calls.append(app_args)
+                        or port_runner.RunResult({}, {}, 0, ""))
+    monkeypatch.setattr(mod, "write_lanes", lambda *a: 0, raising=False)
+    mod.main(["--device", "cpu", *argv])
+    return calls
+
+
+def assert_role_devices(calls):
     """Every multi-device row names its role devices, as many as its
     workers, repeating the CPU here; the rows' arguments lead with
     --device."""
-    calls = []
-    monkeypatch.setattr(PORT[name], "run_app",
-                        lambda app_args, *a, **k: calls.append(app_args)
-                        or port_runner.RunResult({}, {}, 0, ""))
-    monkeypatch.setattr(PORT[name], "write_lanes", lambda *a: 0,
-                        raising=False)
-    PORT[name].main(["--device", "cpu", "--out-dir", str(tmp_path)])
     for app_args in calls:
         assert app_args[:2] == ["--device", "cpu"]
         if "--devices" not in app_args:
@@ -125,6 +188,23 @@ def test_rows_name_the_role_devices(name, tmp_path, monkeypatch):
             n = sum(int(app_args[app_args.index(k) + 1]) for k in
                     ("--num-sample-worker", "--num-train-worker"))
         assert len(devs) == n
+
+
+@pytest.mark.parametrize("name", sorted(PORT))
+def test_rows_name_the_role_devices(name, tmp_path, monkeypatch):
+    assert_role_devices(role_device_calls(
+        PORT[name], ["--out-dir", str(tmp_path)], monkeypatch))
+
+
+@pytest.mark.parametrize("suite", ["scalability", "arch_matrix"])
+def test_auto_runner_rows_name_the_role_devices(suite, tmp_path,
+                                                monkeypatch):
+    calls = role_device_calls(auto_runner,
+                              ["--out-dir", str(tmp_path), suite],
+                              monkeypatch)
+    assert sum("--devices" in c for c in calls) == (
+        4 if suite == "scalability" else 2)
+    assert_role_devices(calls)
 
 
 def test_fig16a_configs_are_the_reference_configs(monkeypatch):
@@ -186,3 +266,24 @@ def test_fig14_runs_end_to_end_on_the_cpu(tmp_path):
     assert lines[-3].split("\t") == fig14.COLUMNS
     assert [ln.split("\t")[:2] for ln in lines[-2:]] == [["fgnn", "2"],
                                                         ["sgnn", "2"]]
+
+
+def test_fig17b_runs_end_to_end_on_the_cpu(tmp_path):
+    """fig17b at 2000 nodes, two epochs: GCN, GraphSAGE and PinSAGE through
+    the port's app on the CPU, and the table is written."""
+    rc = fig17b.main(["--device", "cpu", "--synthetic-nodes", "2000",
+                      "--num-epoch", "2", "--out-dir", str(tmp_path)])
+    assert rc == 0
+    with open(tmp_path / "fig17b.json") as f:
+        payload = json.load(f)
+    rows = payload["results"]
+    assert [r["config"]["model"] for r in rows] == ["gcn", "graphsage",
+                                                    "pinsage"]
+    for r in rows:
+        assert r["rc"] == 0
+        assert float(r["values"]["epoch_time"]) > 0
+    lines = (tmp_path / "fig17b.dat").read_text().splitlines()
+    assert lines[0].startswith("# card=")
+    assert lines[-4].split("\t") == fig17b.COLUMNS
+    assert [ln.split("\t")[0] for ln in lines[-3:]] == ["gcn", "graphsage",
+                                                        "pinsage"]
