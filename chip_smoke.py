@@ -183,9 +183,33 @@ Phases, none of which catches a failure (any failure exits non-zero):
      time limit): two epochs a row in each; fig4a at 0 / 10 / 20% (not
      0-30% in five rows); fig12 GraphSAGE only (not GCN too);
  35. ``python -m fgnn_tpu_torch.tools.bandwidth_bench`` at its defaults
-     (1M x 128 f32, 200,000 rows), after 34 with the card otherwise idle:
+     (1M x 128 f32, 200,000 rows), after 34 and 36, the card otherwise idle:
      host gather, memcpy, H2D pageable and pinned, K1 bit-equal to its
      plain version there and timed beside ``index_select`` and its bound.
+ 36. the papers100M- and uk-union-scale tools at full width on a cut node
+     count, each a process of its own, into a temporary directory outside
+     the repository (removed after): the papers100M rehearsal
+     (``fgnn_tpu_torch.tools.papers100m_rehearsal``, 2,000,000 nodes,
+     lognormal(3), 128-dim features from the 1M-row mock table, 172 classes,
+     batch 8000, [25, 10], hidden 256) with ``--gen-only``, then its hbm and
+     cache modes, two epochs each; the Table-1 driver
+     (``fgnn_tpu_torch.exp.table1_papers100m``) over its four rows with
+     ``--skip-stages`` (a process a row) into
+     ``chiprun_out/smoke_table1_papers100m/``; the uk-union tool's
+     ``generate`` and ``run_epoch`` (arch0 GraphSAGE [25, 10], two epochs)
+     at 2,000,000 nodes and 30M edges through its keyword parameters.
+     Gates: every process rc 0, losses finite, the cache mode's hit rate in
+     (0, 1], K1 launched in every training process; its launches join the
+     ``kernels`` line's count. Then, in this process over the same 2M-node
+     dataset, the rehearsal's hbm and cache engines each hold one step's
+     feature gather against its plain version, bit for bit
+     (``papers100m_rehearsal.check_step``): the mock gather from the 1M-row
+     table against ``index_select`` of the ids modulo its rows, the combine
+     over the 300,000-row cache against ``combine_reference``. The phase
+     starts, in a thread, with phase 29 and runs beside 29-34 (the times it
+     prints are not measurements: PERF.md takes them from ``python -m
+     fgnn_tpu_torch.tools.scale_runs``); it is awaited and checked after 34,
+     before 35, so that phase 35 times the card and the host alone.
 The app and role processes read the bytecode this process compiles
 (``fgnn_tpu_torch/_build/pycache``): without it each one compiles torch's
 sources again on a machine whose packages hold none.
@@ -195,10 +219,13 @@ a JSON line of kernel results (each with its bound on this card and the
 time of the one PyTorch call that computes the same function), then as its
 last line ``{"ok": true, "device": {...}}``.
 """
+import atexit
 import json
 import math
 import os
+import shutil
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2527,6 +2554,136 @@ def app_runners_phase(runs):
     return launches
 
 
+# --- phase 36: the papers100M- and uk-union-scale tools ---------------------
+
+SCALE_NODES = 2_000_000
+UK_SMALL = dict(num_node=2_000_000, target_edges=30_000_000)
+UK_RUN = (
+    "import sys\n"
+    "from fgnn_tpu_torch.tools import ukunion_rehearsal as u\n"
+    "u.generate(sys.argv[1], num_node={num_node}, "
+    "target_edges={target_edges})\n"
+    "u.run_epoch(sys.argv[1], 8000, 80000, 2, 'cuda', num_node={num_node})\n"
+).format(**UK_SMALL)
+SCALE_TABLE1_OUT = os.path.join(REPO, "chiprun_out",
+                                "smoke_table1_papers100m")
+
+
+def scale_tools_run(data):
+    """Phase 36's processes (see the module docstring), one after another,
+    their datasets under ``data``: ``[(label, rc, seconds, output)]``. Runs
+    in a thread beside phases 29-34 and prints nothing;
+    :func:`scale_tools_phase` checks and prints."""
+    import subprocess
+
+    p100m = os.path.join(data, "p100m_ds")
+    reh = [sys.executable, "-m", "fgnn_tpu_torch.tools.papers100m_rehearsal",
+           "--num-node", str(SCALE_NODES), "--cache-dir", p100m]
+    runs = [
+        ("rehearsal --gen-only", reh + ["--gen-only"]),
+        ("rehearsal --mode hbm", reh + ["--mode", "hbm", "--num-epoch", "2"]),
+        ("rehearsal --mode cache",
+         reh + ["--mode", "cache", "--num-epoch", "2"]),
+        ("table1_papers100m", [
+            sys.executable, "-m", "fgnn_tpu_torch.exp.table1_papers100m",
+            "--num-node", str(SCALE_NODES), "--num-epoch", "2",
+            "--skip-stages", "--rows", "hbm", "cache", "dev", "host",
+            "--cache-dir", p100m, "--out-dir", SCALE_TABLE1_OUT]),
+        ("ukunion generate + run_epoch",
+         [sys.executable, "-c", UK_RUN, os.path.join(data, "ukunion_ds")]),
+    ]
+    out = []
+    for label, argv in runs:
+        t0 = time.perf_counter()
+        r = subprocess.run(argv, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True, cwd=REPO,
+                           timeout=900)
+        out.append((label, r.returncode, time.perf_counter() - t0, r.stdout))
+        if r.returncode:
+            break
+    return out
+
+
+def scale_kernel_phase(dev, data):
+    """Phase 36's in-process checks: the rehearsal's two engines at
+    ``SCALE_NODES`` over the dataset its ``--gen-only`` saved in ``data``,
+    each holding one step's feature gather against its plain version, bit
+    for bit (``papers100m_rehearsal.check_step``): the mock gather from the
+    1M-row table against ``index_select`` of the ids modulo its rows, and
+    the cache combine against ``combine_reference``. Returns the max
+    |difference|."""
+    import torch
+    from fgnn_tpu_torch.engine import OneChipEngine
+    from fgnn_tpu_torch.tools import papers100m_rehearsal as reh
+
+    ds = reh.load_cached(os.path.join(data, "p100m_ds",
+                                      reh.stamp(SCALE_NODES)),
+                         SCALE_NODES, 0.01)
+    check(ds.empty_feat, "the 2M-node dataset must read a mock table")
+    max_err = 0.0
+    for mode in ("hbm", "cache"):
+        eng = OneChipEngine(reh.engine_config(mode), ds, dev,
+                            feat_budget=0 if mode == "cache" else None)
+        check((eng.cache is not None) == (mode == "cache"),
+              f"{mode}: the engine's path")
+        what, err = reh.check_step(eng)
+        torch.cuda.synchronize()
+        print(f"  {mode} mode: {what}: bit-equal to its plain version")
+        max_err = max(max_err, err)
+        del eng
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def scale_tools_phase(card, runs):
+    """Phase 36's checks over :func:`scale_tools_run`'s processes. Returns
+    the row gather's launches over them."""
+    import ast
+    import re
+
+    total = 0
+    for label, rc, seconds, text in runs:
+        check(rc == 0, f"{label}: rc {rc}\n{text[-3000:]}")
+        lines = text.splitlines()
+        epochs = [ast.literal_eval(m.group(1)) for ln in lines
+                  for m in [re.match(r"^\[epoch \d+\] (\{.*\})$", ln)] if m]
+        losses = [e["loss"] for e in epochs]
+        losses += [float(m.group(1)) for ln in lines
+                   for m in [re.match(r"^\[\w+\] epoch \d+: \S+ "
+                                      r"loss=(\S+)", ln)
+                             or re.match(r"^test_result:epoch\d+_loss=(\S+)",
+                                         ln)] if m]
+        counts = [int(m.group(1)) for ln in lines
+                  for m in [re.match(
+                      r"^test_result:launches:gather_rows=(\d+)$", ln)] if m]
+        hits = [1 - e["miss_bytes"] / e["feature_bytes"] for e in epochs
+                if e.get("feature_bytes")]
+        print(f"  {label} ({seconds:.1f} s with its start, beside phases "
+              f"29-34): " + "; ".join(
+                  ln.strip() for ln in lines
+                  if ln.startswith(("[gen]", "[init]", "[result]", "# engine",
+                                    "# generated", "[hbm]", "[cache]",
+                                    "[dev]", "[host]", "# epoch"))))
+        if label == "rehearsal --gen-only":
+            continue
+        check(losses and all(math.isfinite(x) for x in losses),
+              f"{label}: losses {losses}")
+        check(counts and all(n > 0 for n in counts),
+              f"{label}: gather_rows launches {counts}")
+        if label == "rehearsal --mode cache":
+            check(len(hits) == 2 and all(0 < h <= 1 for h in hits),
+                  f"{label}: hit rates {hits}")
+            print(f"  cache mode hit rates {[round(h, 4) for h in hits]}")
+        if label == "table1_papers100m":
+            check(len(counts) == 4, f"{label}: {len(counts)} rows reported")
+        total += sum(counts)
+        print(f"  {label}: losses {[round(x, 4) for x in losses]}, "
+              f"gather_rows launches {sum(counts)} ({card})")
+    check(len(runs) == 5, f"phase 36 stopped after {runs[-1][0]}")
+    print_table(os.path.join(SCALE_TABLE1_OUT, "table1_papers100m.dat"))
+    return total
+
+
 def main() -> int:
     # The app processes of phases 20-21 read the bytecode this process
     # compiles: where the installed packages carry none and cannot take it,
@@ -2547,7 +2704,7 @@ def main() -> int:
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/35] device")
+    print("[1/36] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -2559,161 +2716,178 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/35] build")
+    print("[2/36] build")
     kernels = ("gather_rows", "stream_add_one")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/35] row gather against plain version")
+    print("[3/36] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/35] small input, GraphSAGE: card against CPU")
+    print("[4/36] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/35] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/36] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
     sage_launches = main_path_phase(dev, card, ds)
 
-    print("[6/35] streaming pass against plain version")
+    print("[6/36] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/35] gather campaign: stream and kernel phases")
+    print("[7/36] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/35] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/36] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/35] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    print("[9/36] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
     gcn_launches = gcn_phase(dev, card, ds)
 
-    print("[10/35] small input, PinSAGE: card against CPU")
+    print("[10/36] small input, PinSAGE: card against CPU")
     small_input_phase(dev, model="pinsage",
                       sample_type=SampleType.RANDOM_WALK)
 
-    print("[11/35] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+    print("[11/36] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
           "evaluate")
     pinsage_launches = pinsage_phase(dev, card, ds)
 
-    print("[12/35] small input, GAT: card against CPU, eval-mode logits and "
+    print("[12/36] small input, GAT: card against CPU, eval-mode logits and "
           "gradients")
     gat_small_phase(dev)
 
-    print("[13/35] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+    print("[13/36] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
           "evaluate")
     gat_launches = gat_phase(dev, card, ds)
 
-    print("[14/35] small input, host-resident table, PRESAMPLE and "
+    print("[14/36] small input, host-resident table, PRESAMPLE and "
           "DYNAMIC_CACHE: card against CPU")
     cache_small_phase(dev)
 
-    print("[15/35] GraphSAGE main path, feature table in host memory: hit "
+    print("[15/36] GraphSAGE main path, feature table in host memory: hit "
           "rates, pipelined cache epochs, host path, dynamic cache")
     cache_launches = cache_phase(dev, card, ds)
 
-    print("[16/35] small input, KHOP1 and the weighted samplers: card "
+    print("[16/36] small input, KHOP1 and the weighted samplers: card "
           "against CPU; the direct-index dedup at the main path's shapes")
     other_samplers_small_phase(dev)
     remap_phase(dev, card, ds)
 
-    print("[17/35] KHOP1 and the weighted samplers at full width, 1M-node "
+    print("[17/36] KHOP1 and the weighted samplers at full width, 1M-node "
           "graph")
     other_launches = other_samplers_phase(dev, card, ds)
 
-    print("[18/35] small input, arch0 (host sampling): card against CPU")
+    print("[18/36] small input, arch0 (host sampling): card against CPU")
     arch0_small_phase(dev)
 
-    print("[19/35] arch0 at the bench configuration, 1M-node graph")
+    print("[19/36] arch0 at the bench configuration, 1M-node graph")
     arch0_launches = arch0_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     t20 = time.perf_counter()
-    print("[20/35] entry points: observed epoch, session, checkpoint (small "
+    print("[20/36] entry points: observed epoch, session, checkpoint (small "
           "input); the app at the bench configuration")
     observe_small_phase(dev)
     app_launches = app_phase(card)
 
-    print("[21/35] Table 1 through the port's app, 2 epochs a row: runs "
+    print("[21/36] Table 1 through the port's app, 2 epochs a row: runs "
           "later, beside phases 32-34")
     print(f"  phase 20: {time.perf_counter() - t20:.1f} s; smoke wall time "
           f"{time.perf_counter() - t_start:.1f} s")
 
     t22 = time.perf_counter()
-    print("[22/35] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
+    print("[22/36] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
           "one card: card against CPU")
     multi_device_small_phase(dev)
 
-    print("[23/35] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
+    print("[23/36] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
           "W=2) at the main path's configuration, in a process of their own")
     torch.cuda.empty_cache()
     factored_launches = factored_epochs_phase(card)
 
-    print("[24/35] row gather against plain version at the arch5 and arch6 "
+    print("[24/36] row gather against plain version at the arch5 and arch6 "
           "paths' shapes")
     max_err = max(max_err, factored_kernel_phase(dev, card, ds))
 
-    print("[25/35] arch5 S=1 T=2 on one card: the data-parallel step against "
+    print("[25/36] arch5 S=1 T=2 on one card: the data-parallel step against "
           "one replica's")
     arch5_reduce_phase(dev, ds)
 
-    print("[26/35] the switcher (forced tail) and the async trainers, one "
+    print("[26/36] the switcher (forced tail) and the async trainers, one "
           "epoch each")
     switcher_async_phase(dev, card, ds)
     del ds
     torch.cuda.empty_cache()
 
-    print("[27/35] placement gates: permuted cards, one card against two")
+    print("[27/36] placement gates: permuted cards, one card against two")
     placement_phase()
 
-    print("[28/35] the app on arch5, both roles on one card, 2 epochs")
+    print("[28/36] the app on arch5, both roles on one card, 2 epochs")
     app5_launches = app5_phase(card)
     print(f"  phases 22-28: {time.perf_counter() - t22:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 
     t29 = time.perf_counter()
-    print("[29/35] a process per role on one card, small input: against one "
+    print("[36/36] the papers100M- and uk-union-scale tools at 2,000,000 "
+          "nodes: started now, beside phases 29-34, checked after them")
+    # removed at exit, after the interpreter has joined the thread
+    scale_data = tempfile.mkdtemp(prefix="fgnn_scale_smoke_")
+    atexit.register(shutil.rmtree, scale_data, ignore_errors=True)
+    scale_pool = ThreadPoolExecutor(1)
+    scale_future = scale_pool.submit(scale_tools_run, scale_data)
+
+    print("[29/36] a process per role on one card, small input: against one "
           "process, bit for bit")
     processes_small_phase()
 
-    print("[30/35] a process per role at the bench configuration, 3 epochs; "
+    print("[30/36] a process per role at the bench configuration, 3 epochs; "
           "the data-parallel demo as 2 processes")
     mp_launches = multiprocess_phase(card)
 
-    print("[31/35] Table 4's arch5 and arch6 rows at n = 2 through the port's "
+    print("[31/36] Table 4's arch5 and arch6 rows at n = 2 through the port's "
           "runner")
     runner_launches = runner_phase(card)
     print(f"  phases 29-31: {time.perf_counter() - t29:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 
     t32 = time.perf_counter()
-    print("[21/35] and [34/35]: Table 1 and the app runners through the "
+    print("[21/36] and [34/36]: Table 1 and the app runners through the "
           "port's runner (fig17b, table6, fig4a with fig4b, fig12, the "
           "auto_runner breakdown suite): started now, beside phases 32-33, "
           "checked after them")
     with ThreadPoolExecutor(6) as pool:
         table1_run = start_table1(pool)
         runs = start_app_runners(pool)
-        print("[32/35] converted data on the card: the products fixture "
+        print("[32/36] converted data on the card: the products fixture "
               "through the port's datagen, 8 epochs, one step against the "
               "CPU")
         datagen_launches = datagen_phase(dev)
 
-        print("[33/35] the cache-policy experiments in process at their "
+        print("[33/36] the cache-policy experiments in process at their "
               "defaults: fig10, fig11, fig5a, table2; fig5b at 200,000 "
               "nodes")
         cache_exps_phase()
 
-        print("[34/35] the app runners: waiting for them, then their checks")
+        print("[34/36] the app runners: waiting for them, then their checks")
         apps_launches = app_runners_phase(runs)
-        print("[21/35] Table 1: waiting for it, then its checks")
+        print("[21/36] Table 1: waiting for it, then its checks")
         table1_launches = table1_phase(card, table1_run.result())
     print(f"  phases 21 and 32-34: {time.perf_counter() - t32:.1f} s")
 
-    print("[35/35] bandwidth_bench at its defaults: host gather, memcpy, H2D, "
+    t36 = time.perf_counter()
+    print("[36/36] the papers100M- and uk-union-scale tools: waiting for them, "
+          "then their checks; K1 at their shapes against its plain version")
+    scale_launches = scale_tools_phase(card, scale_future.result())
+    scale_pool.shutdown()
+    max_err = max(max_err, scale_kernel_phase(dev, scale_data))
+    print(f"  phase 36: {time.perf_counter() - t36:.1f} s after phase 34; "
+          f"smoke wall time {time.perf_counter() - t_start:.1f} s")
+
+    print("[35/36] bandwidth_bench at its defaults: host gather, memcpy, H2D, "
           "K1 against index_select")
     bandwidth_phase()
-    print(f"  phases 32-35: {time.perf_counter() - t32:.1f} s; smoke wall "
+    print(f"  phases 32-36: {time.perf_counter() - t32:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 
     best = min(s_timing, key=lambda c: s_timing[c]["ms"])
@@ -2728,7 +2902,8 @@ def main() -> int:
                   + gat_launches + cache_launches + other_launches
                   + arch0_launches + app_launches + table1_launches
                   + factored_launches + app5_launches + mp_launches
-                  + runner_launches + datagen_launches + apps_launches),
+                  + runner_launches + datagen_launches + apps_launches
+                  + scale_launches),
         max_abs_err=max_err,
         bound_by="bytes",
         **timing["feature gather"],

@@ -8,10 +8,26 @@ first use (``ops/cuda_lib.py``). The host-side modules (``config``,
 reference's. This package imports neither jax, flax, optax nor fgnn_tpu.
 
 Ported: one-device training (``engine.OneChipEngine``) of GraphSAGE, GCN,
-GAT and PinSAGE, with the feature table on the device or in host memory
-behind the static (presample, degree, random, ...) and dynamic feature
-caches. Not yet: the KHOP1 and weighted samplers, arch0, the session API,
-checkpoints, sanity checks and the multi-device engines (ROADMAP.md).
+GAT and PinSAGE with every sampler, the feature table on the device or in
+host memory behind the static and dynamic feature caches; arch0
+(``host_engine``); the profiler, sanity checks, checkpoints and the session
+API; the multi-device engines (``parallel``), in one process or a process
+per role; the apps, the experiment runners and the papers100M- and
+uk-union-scale tools. ROADMAP.md lists what is left out on purpose.
 """
 
 __version__ = "0.1.0"
+
+from .config import CachePolicy, RunArch, RunConfig, SampleType
+from .data import Dataset, load_dataset, make_synthetic_dataset, write_dataset
+
+__all__ = [
+    "CachePolicy",
+    "Dataset",
+    "RunArch",
+    "RunConfig",
+    "SampleType",
+    "load_dataset",
+    "make_synthetic_dataset",
+    "write_dataset",
+]

@@ -59,9 +59,11 @@ def make_synthetic_dataset(
     np.cumsum(deg, out=indptr[1:])
     num_edge = int(indptr[-1])
     # bias neighbour choice toward low ids, then permute ids so hot
-    # vertices are scattered
-    u = rng.random(num_edge)
+    # vertices are scattered. The edge uniforms are drawn in either branch,
+    # so the stream stays the reference's; the lognormal branch reads none
+    # of them and skips their draws in place (one 64-bit draw each)
     if neighbor_lognormal_sigma > 0:
+        rng.bit_generator.advance(num_edge)
         w = rng.lognormal(0.0, neighbor_lognormal_sigma, size=num_node)
         cnt = rng.poisson(w * (num_edge / w.sum()))
         nbr = np.repeat(
@@ -74,15 +76,19 @@ def make_synthetic_dataset(
             extra = rng.integers(0, num_node, num_edge - len(nbr))
             nbr = np.concatenate([nbr, extra])
     else:
+        u = rng.random(num_edge)
         nbr = (u ** neighbor_skew * num_node).astype(np.int64)  # skew->small
-    nbr = np.minimum(nbr, num_node - 1)
+        del u
+    np.minimum(nbr, num_node - 1, out=nbr)
     perm = rng.permutation(num_node)
     if neighbor_pref > 0.0:
         order = np.argsort(-deg)  # rank r -> node with r-th highest out-degree
         use_pref = rng.random(num_edge) < neighbor_pref
         indices = np.where(use_pref, order[nbr], perm[nbr]).astype(np.int32)
     else:
-        indices = perm[nbr].astype(np.int32)
+        # ids fit int32: taking from an int32 perm writes the result
+        # directly, with no int64 copy of every edge
+        indices = perm.astype(np.int32)[nbr]
 
     if empty_feat_rows:
         feat = rng.standard_normal(

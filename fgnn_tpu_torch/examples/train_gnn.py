@@ -81,8 +81,7 @@ def report(prof: Profiler, num_node: int) -> None:
                       ("init:copy", "init_copy"),
                       ("init:build_cache", "init_build_cache")):
         log_test_result(key, f"{prof.get_init_value(item):.4f}")
-    for name, n in sorted(cuda_lib.launches.items()):
-        log_test_result(f"launches:{name}", str(n))
+    cuda_lib.log_launches()
     if prof.trace_enabled:
         # samgraph_dump_trace analog (SAMGRAPH_DUMP_TRACE flow)
         prof.dump_trace(os.environ.get("FGNN_TPU_TRACE_PATH", "trace.json"))

@@ -143,8 +143,9 @@ def take_stages(r: RunResult, staged: RunResult) -> RunResult:
 
 def card_meta() -> Dict[str, str]:
     """The card (nvidia-smi's ``name, power.limit``) and the host's CPU
-    model and core count, for every table: card times come from the card,
-    host-bound rows move with the host."""
+    model, core count and memory, for every table: card times come from the
+    card, host-bound rows move with the host, and the host's memory decides
+    whether a large graph can be built there."""
     try:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -154,27 +155,56 @@ def card_meta() -> Dict[str, str]:
     except (OSError, subprocess.SubprocessError, IndexError):
         card = "none (nvidia-smi found no card)"
     return {"card": card, "host_cpu": host_cpu(),
-            "host_cores": str(os.cpu_count() or 1)}
+            "host_cores": str(os.cpu_count() or 1),
+            "host_memory": host_memory()}
 
 
-def host_cpu() -> str:
-    """The host CPU's model: /proc/cpuinfo's ``model name``, else lscpu's
-    ``Model name`` (a container may hide the first), else the machine type."""
+def host_memory() -> str:
+    """The host's memory, /proc/meminfo's ``MemTotal`` in GiB, or
+    ``unknown``."""
     try:
-        with open("/proc/cpuinfo") as f:
+        with open("/proc/meminfo") as f:
             for line in f:
-                if line.startswith("model name"):
-                    return line.split(":", 1)[1].strip()
+                if line.startswith("MemTotal:"):
+                    kib = int(line.split()[1])
+                    return f"{kib / 2**20:.1f} GiB"
+    except (OSError, ValueError, IndexError):
+        pass
+    return "unknown"
+
+
+def host_cpu(cpuinfo: str = "/proc/cpuinfo") -> str:
+    """The host CPU's model: /proc/cpuinfo's ``model name``, else lscpu's
+    ``Model name`` (a container may hide the first or call it
+    ``unknown``), else the vendor, family and model numbers cpuinfo gives,
+    else the machine type."""
+    fields: Dict[str, str] = {}
+    try:
+        with open(cpuinfo) as f:
+            for line in f:
+                if not line.strip():
+                    break   # the first processor's block only
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
     except OSError:
         pass
+    name = fields.get("model name", "")
+    if name and name != "unknown":
+        return name
     try:
         out = subprocess.run(["lscpu"], capture_output=True, text=True,
                              timeout=60).stdout
         for line in out.splitlines():
             if line.startswith("Model name:"):
-                return line.split(":", 1)[1].strip()
+                name = line.split(":", 1)[1].strip()
+                if name and name != "unknown":
+                    return name
     except (OSError, subprocess.SubprocessError):
         pass
+    if "vendor_id" in fields:
+        return (f"unknown ({fields['vendor_id']} family "
+                f"{fields.get('cpu family', '?')} model "
+                f"{fields.get('model', '?')})")
     return f"unknown ({platform.machine()})"
 
 

@@ -54,6 +54,13 @@ def count_launch(name: str) -> None:
     launches[name] = launches.get(name, 0) + 1
 
 
+def log_launches() -> None:
+    """One ``test_result:launches:<kernel>=<n>`` line a kernel, its launches
+    since the last :func:`reset_launches` (the apps' result format)."""
+    for name, n in sorted(launches.items()):
+        print(f"test_result:launches:{name}={n}", flush=True)
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None:

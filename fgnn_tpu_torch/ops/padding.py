@@ -38,6 +38,10 @@ class SamplePlan:
     tier_layout: Optional[Tuple[Tuple[int, int], ...]] = None
 
     @property
+    def tier_a_cap(self) -> Optional[int]:
+        return self.tier_layout[0][0] if self.tier_layout else None
+
+    @property
     def tier_b_fanout(self) -> Optional[int]:
         return self.tier_layout[-1][1] if self.tier_layout else None
 

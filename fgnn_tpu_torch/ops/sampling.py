@@ -114,6 +114,10 @@ class Block:
     tier_split: Optional[Tuple[Tuple[int, int], ...]] = None
     dst_invperm: Optional[torch.Tensor] = None   # [V] int32
 
+    @property
+    def num_edge_cap(self) -> int:
+        return self.src_local.shape[0]
+
 
 @dataclasses.dataclass
 class SampledBatch:

@@ -1,1 +1,2 @@
 """Training step."""
+from .loop import masked_cross_entropy

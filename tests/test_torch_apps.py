@@ -193,8 +193,9 @@ def test_tables_equal_the_reference(tmp_path):
                           "b.log"),
     ]
     meta = trunner.card_meta()
-    assert set(meta) == {"card", "host_cpu", "host_cores"}
+    assert set(meta) == {"card", "host_cpu", "host_cores", "host_memory"}
     assert int(meta["host_cores"]) >= 1
+    assert float(meta["host_memory"].split()[0]) > 0
     cols = ["system", "sample_time", "epoch_time", "model"]
     for mod, name in ((trunner, "port"), (jrunner, "ref")):
         mod.write_table(results, cols, str(tmp_path / f"{name}.dat"),
@@ -225,3 +226,22 @@ def test_table1_rows_are_the_reference_rows():
         assert ("--cache-percentage" in argv) == tag.endswith("+cache")
         arch = argv[argv.index("--arch") + 1]
         assert arch == ("arch0" if tag.startswith("host") else "arch1")
+
+
+@pytest.mark.parametrize("text, expected", [
+    ("processor\t: 0\nvendor_id\t: GenuineIntel\ncpu family\t: 6\n"
+     "model\t\t: 143\nmodel name\t: Intel(R) Xeon(R) Platinum 8480+\n\n"
+     "processor\t: 1\nmodel name\t: other\n",
+     "Intel(R) Xeon(R) Platinum 8480+"),
+    ("processor\t: 0\nvendor_id\t: GenuineIntel\ncpu family\t: 6\n"
+     "model\t\t: 207\nmodel name\t: unknown\n",
+     "unknown (GenuineIntel family 6 model 207)"),
+])
+def test_host_cpu_reads_cpuinfo(text, expected, tmp_path, monkeypatch):
+    """The table header's CPU model: cpuinfo's model name, or where a
+    container calls it unknown (and lscpu does too), the vendor, family
+    and model numbers."""
+    path = tmp_path / "cpuinfo"
+    path.write_text(text)
+    monkeypatch.setenv("PATH", str(tmp_path))   # no lscpu
+    assert trunner.host_cpu(str(path)) == expected

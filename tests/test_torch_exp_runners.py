@@ -287,3 +287,77 @@ def test_fig17b_runs_end_to_end_on_the_cpu(tmp_path):
     assert lines[-4].split("\t") == fig17b.COLUMNS
     assert [ln.split("\t")[0] for ln in lines[-3:]] == ["gcn", "graphsage",
                                                         "pinsage"]
+
+
+def test_fig12_table_carries_the_host_gather(tmp_path, monkeypatch):
+    """fig12's table, through the recorder: the reference's columns with
+    ``extract_time`` (the misses' host gather, which the port files apart
+    from the upload) and a header line saying that copy_time +
+    extract_time is the reference's copy_time."""
+    def run_app(app_args, log_dir, tag, env=None, **_):
+        return port_runner.RunResult(
+            config={}, values={"epoch_time": "1.0", "copy_time": "0.05",
+                               "extract_time": "0.4", "train_time": "0.3",
+                               "cache_hit_rate": "0.44"},
+            returncode=0, log_path="")
+    monkeypatch.setattr(fig12, "run_app", run_app)
+    assert fig12.main(["--device", "cpu", "--out-dir", str(tmp_path)]) == 0
+    lines = (tmp_path / "fig12.dat").read_text().splitlines()
+    head = [ln for ln in lines if ln.startswith("#")]
+    assert f"# note={fig12.NOTE}" in head
+    assert "copy_time + extract_time is the reference's copy_time" in (
+        fig12.NOTE)
+    cols = lines[len(head)].split("\t")
+    assert cols == fig12.COLUMNS
+    assert cols.index("extract_time") == cols.index("copy_time") + 1
+    rows = [dict(zip(cols, ln.split("\t"))) for ln in lines[len(head) + 1:]]
+    assert len(rows) == 6
+    assert {(r["copy_time"], r["extract_time"]) for r in rows} == {
+        ("0.05", "0.4")}
+    with open(tmp_path / "fig12.json") as f:
+        assert json.load(f)["meta"]["note"] == fig12.NOTE
+
+
+RUNNERS = ["table1", "table2", "table4", "table5", "table6", "fig4a", "fig5",
+           "fig10", "fig11", "fig12", "fig13", "fig14", "fig15", "fig16a",
+           "fig17a", "fig17b"]
+MAKEFILE_DIR = os.path.join(REPO, "fgnn_tpu_torch", "exp")
+
+
+def make_n(*targets):
+    import subprocess
+
+    r = subprocess.run(["make", "-n", "-s", "-C", MAKEFILE_DIR, *targets],
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stderr
+    return [ln for ln in r.stdout.splitlines() if ln.strip()]
+
+
+def test_makefile_names_every_runner():
+    """``make -n all``: one command a target, each from the repository root
+    through ``python3 -m`` on a module that exists, on the default device
+    (fig4b, a simulation, takes none); the reference's 16 experiments, fig4b
+    and the papers100M Table 1."""
+    lines = make_n("all")
+    mods = []
+    for ln in lines:
+        assert ln.startswith(f"cd {REPO} && python3 -m fgnn_tpu_torch.exp."), ln
+        mod = ln.split(" -m ")[1].split()[0]
+        assert importlib.util.find_spec(mod) is not None, mod
+        name = mod.rsplit(".", 1)[1]
+        assert ln.endswith(" --device cuda") == (name != "fig4b"), ln
+        mods.append(name)
+    assert mods == RUNNERS + ["fig4b", "table1_papers100m"]
+    with open(os.path.join(REPO, "exp", "Makefile")) as f:
+        ref = f.read().split("EXPS =")[1].split("\nRUNS")[0]
+    assert ref.replace("\\", " ").split() == RUNNERS
+
+
+def test_makefile_device_and_clean():
+    assert make_n("fig10.run", "DEVICE=cuda:1") == [
+        f"cd {REPO} && python3 -m fgnn_tpu_torch.exp.fig10 --device cuda:1"]
+    (clean,) = make_n("clean")
+    prefix = f"cd {REPO} && rm -rf "
+    assert clean.startswith(prefix)
+    assert clean[len(prefix):].split() == [
+        f"chiprun_out/{n}" for n in RUNNERS + ["fig4b", "table1_papers100m"]]

@@ -99,6 +99,10 @@ DATASET_ARGS = [
          neighbor_lognormal_sigma=3.0),
     dict(num_node=2000, avg_degree=8, feat_dim=16, num_class=4, seed=1,
          empty_feat_rows=100),
+    # the papers100M tools' law: lognormal targets and a mock table
+    dict(num_node=6000, avg_degree=14, feat_dim=8, num_class=7, seed=2,
+         train_frac=0.01, neighbor_skew=6.0, neighbor_lognormal_sigma=3.0,
+         empty_feat_rows=256),
 ]
 
 
@@ -113,7 +117,8 @@ def assert_datasets_equal(j, t):
 
 
 @pytest.mark.parametrize("kw", DATASET_ARGS,
-                         ids=["plain", "skew-pref", "lognormal", "empty-feat"])
+                         ids=["plain", "skew-pref", "lognormal", "empty-feat",
+                              "lognormal-empty-feat"])
 def test_make_synthetic_dataset_is_bit_equal(kw):
     j = jsynthetic.make_synthetic_dataset(**kw)
     t = tsynthetic.make_synthetic_dataset(**kw)

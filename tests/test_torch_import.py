@@ -117,3 +117,14 @@ def test_multi_device_modules_import_no_jax(module):
     path = os.path.join(PKG, module)
     assert path in set(_port_sources())
     assert not _forbidden_imports(path)
+
+
+@pytest.mark.parametrize("module", [
+    "tools/papers100m_rehearsal.py", "exp/table1_papers100m.py",
+    "tools/ukunion_rehearsal.py", "tools/scale_runs.py"])
+def test_scale_tools_import_no_jax(module):
+    """The papers100M- and uk-union-scale tools are among the scanned
+    sources, and none of their imports names a forbidden root module."""
+    path = os.path.join(PKG, module)
+    assert path in set(_port_sources())
+    assert not _forbidden_imports(path)
