@@ -131,9 +131,16 @@ Phases, none of which catches a failure (any failure exits non-zero):
  26. the switcher (``FGNN_TPU_SWITCHER_FORCE=1``, S=1 T=1) and the async
      trainers (T=2, averaging every 2 groups), one epoch each: finite
      losses, the switcher's tail engaged;
- 27. the reference's placement gates, in a process of their own with
-     deterministic algorithms, where a second card exists; else one line
-     saying they did not run;
+ 27. the reference's multi-device gates (``python -m
+     fgnn_tpu_torch.tools.multichip``, a process of its own under
+     deterministic algorithms, on the reference's 800-node input; it runs
+     beside phases 29-31 and is checked after them): on one
+     card ``--devices cuda:0``, every role on cuda:0 (S=1, T=3, W=4), so
+     (a) and (b), the placement gates, are refused by name and (c)-(h)
+     run: arch6's finite loss, no overflow, arch5's loss within 5% of
+     arch6's, and cache mode, PinSAGE's walk and the forced switcher each
+     bit-equal over two runs; with two or more cards, every gate over
+     every card (see the tool), each one's seconds printed;
  28. the app, ``train_gnn --arch arch5 --devices cuda:0,cuda:0`` at the
      bench configuration, two epochs: rc 0, its devices, keys and
      launches;
@@ -2095,58 +2102,44 @@ def switcher_async_phase(dev, card, ds):
     torch.cuda.empty_cache()
 
 
-def placement_gates():
-    """The reference's bit-equality gates (__graft_entry__.py:121-155), run
-    in a process of its own with deterministic algorithms (the gradients'
-    scatter-adds use atomics otherwise), one epoch each on the small input
-    with dropout on: arch5 S=1, T=1 on [cuda:0, cuda:1] against [cuda:1,
-    cuda:0] (gate 1) and against [cuda:0, cuda:0] (gate 2); then S=1, T=2
-    on three cards against one (the batch crossing between trainers and
-    the gradients summed across cards). Losses and parameters equal bit
-    for bit."""
-    import torch
-    from fgnn_tpu_torch.parallel.factored import FactoredEngine
-
-    torch.use_deterministic_algorithms(True)
-    ds = small_dataset()
-    cfg = small_config("graphsage", fanout=(10, 3), dropout=0.5)
-
-    def run(devices, **kw):
-        eng = FactoredEngine(cfg.replace(**kw), ds, devices)
-        return eng.run_epoch(0)["loss"], [p.detach().cpu() for p in
-                                           eng.model.parameters()]
-
-    gates = [("gate 1 (permuted)", ["cuda:0", "cuda:1"], ["cuda:1", "cuda:0"],
-              {}),
-             ("gate 2 (one card)", ["cuda:0", "cuda:1"], ["cuda:0", "cuda:0"],
-              {})]
-    if torch.cuda.device_count() >= 3:
-        gates.append(("T=2 across three cards", ["cuda:0", "cuda:1", "cuda:2"],
-                      ["cuda:0"] * 3, {"num_train_worker": 2}))
-    for label, a, b, kw in gates:
-        (la, pa), (lb, pb) = run(a, **kw), run(b, **kw)
-        check(la == lb and all(torch.equal(p, q) for p, q in zip(pa, pb)),
-              f"{label}: {b} differs from {a} (loss {la!r} / {lb!r})")
-        print(f"  {label}: {b} bit-equal to {a}, loss {la!r}")
-
-
-def placement_phase():
+def multichip_run():
+    """Phase 27's process: the tool over every card (one card: four roles
+    on cuda:0). Returns (its result, its seconds with its start)."""
     import subprocess
 
     import torch
 
-    n = torch.cuda.device_count()
-    if n < 2:
-        print(f"  the placement gates did not run: they need a second card "
-              f"and this machine has {n}")
-        return
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    devices = ",".join(f"cuda:{i}" for i in range(torch.cuda.device_count()))
+    t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.placement_gates()"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    print(proc.stdout, end="")
-    check(proc.returncode == 0, f"placement gates: rc {proc.returncode}\n"
-          f"{proc.stderr[-4000:]}")
+        [sys.executable, "-m", "fgnn_tpu_torch.tools.multichip", "--devices",
+         devices], cwd=REPO, capture_output=True, text=True, timeout=600)
+    return proc, time.perf_counter() - t0
+
+
+def multichip_phase(run):
+    """Phase 27's checks: every gate passes, and on one card (a) and (b)
+    alone are refused."""
+    import torch
+
+    n = torch.cuda.device_count()
+    proc, seconds = run
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        if line.startswith("gate "):
+            print(f"  {line}")
+    check(proc.returncode == 0 and lines, f"multichip: rc {proc.returncode}"
+          f"\n{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    r = json.loads(lines[-1])
+    gates = {g["name"]: g for g in r["gates"]}
+    refused = sorted(k for k, g in gates.items() if g["ok"] is None)
+    check(sorted(gates) == list("abcdefgh") and r["ok"],
+          f"multichip: gates {sorted(gates)}, ok {r['ok']}")
+    check(refused == ([] if n > 1 else ["a", "b"]),
+          f"multichip on {n} card(s): refused {refused}")
+    print(f"  multichip on {r['devices']} ({r['card']}): every gate passed, "
+          f"refused {refused or 'none'}, {seconds:.1f} s with its start "
+          "(beside phases 29-31)")
 
 
 APP5_ARGS = ["--arch", "arch5", "--devices", "cuda:0,cuda:0", "--model",
@@ -2342,6 +2335,8 @@ def multiprocess_phase(card):
         check(rc == 0, f"data-parallel demo rank {i}: rc {rc}\n{text[-3000:]}")
         vals.append(dict(re.findall(r"test_result:([^=]+)=(\S+)", text)))
     check(vals[0] == vals[1], f"data-parallel demo: ranks differ {vals}")
+    check(vals[0]["grad_route"] == "host", "data-parallel demo: two ranks "
+          f"on cuda:0 took the gradient route {vals[0]['grad_route']}")
     check(float(vals[0]["epoch1_loss"]) < float(vals[0]["epoch0_loss"]),
           f"data-parallel demo: loss does not fall {vals[0]}")
     print(f"  data-parallel demo, 2 processes on cuda:0 "
@@ -2879,9 +2874,6 @@ def main() -> int:
     del ds
     torch.cuda.empty_cache()
 
-    print("[27/37] placement gates: permuted cards, one card against two")
-    placement_phase()
-
     print("[28/37] the app on arch5, both roles on one card, 2 epochs")
     app5_launches = app5_phase(card)
     print(f"  phases 22-28: {time.perf_counter() - t22:.1f} s; smoke wall "
@@ -2895,6 +2887,10 @@ def main() -> int:
     atexit.register(shutil.rmtree, scale_data, ignore_errors=True)
     scale_pool = ThreadPoolExecutor(1)
     scale_future = scale_pool.submit(scale_tools_run, scale_data)
+    print("[27/37] the reference's multi-device gates (tools.multichip) over "
+          "every card: started now, beside phases 29-31, checked after them")
+    gates_pool = ThreadPoolExecutor(1)
+    gates_future = gates_pool.submit(multichip_run)
 
     print("[29/37] a process per role on one card, small input: against one "
           "process, bit for bit")
@@ -2907,6 +2903,9 @@ def main() -> int:
     print("[31/37] Table 4's arch5 and arch6 rows at n = 2 through the port's "
           "runner")
     runner_launches = runner_phase(card)
+    print("[27/37] the reference's multi-device gates: their checks")
+    multichip_phase(gates_future.result())
+    gates_pool.shutdown()
     print(f"  phases 29-31: {time.perf_counter() - t29:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 

@@ -8,10 +8,11 @@ enum values, which is how a configuration crosses between the packages.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from . import constants
 
@@ -218,3 +219,19 @@ def env_flag(name: str, default: bool = False) -> bool:
 def env_int(name: str, default: int = 0) -> int:
     v = os.environ.get(name)
     return default if v is None else int(v)
+
+
+@contextlib.contextmanager
+def env_set(values: Dict[str, str]):
+    """``values`` set in ``os.environ`` for the block, the previous values
+    (or their absence) back after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

@@ -14,7 +14,9 @@ Launch one process a rank:
 
 Each process takes ``--devices`` (comma-separated, its own role devices;
 one slot or logical trainer each), by default ``cuda:<rank mod visible
-cards>``; ``--smoke`` runs on the CPU. Trainers print ``test_result:``
+cards>``; ``--smoke`` runs on the CPU. Every process prints
+``test_result:grad_route`` (``nccl``, ``host``, or ``None`` with one
+trainer process); trainers print ``test_result:``
 ``epoch<i>_loss`` and ``epoch<i>_acc`` (8 decimals) and ``param_checksum``;
 ``--save-params DIR`` writes the first trainer's parameters to
 ``DIR/params.pt``.
@@ -89,6 +91,7 @@ def main(argv: Sequence[str] = None) -> int:
     eng = MultihostFactoredEngine(
         app_config(args), app_dataset(args.synthetic_nodes),
         num_sampler_hosts=args.num_sampler_hosts, devices=devices)
+    log_test_result("grad_route", str(eng.grad_route))
     for epoch in range(args.num_epoch):
         r = eng.run_epoch(epoch)
         print(f"proc {eng.proc} ({r['role']}) epoch {epoch}: "

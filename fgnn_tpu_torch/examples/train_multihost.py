@@ -6,8 +6,10 @@ the identically shuffled train set on the host (``np_multi_layer_sample``,
 ``default_rng(seed + rank)``), trains them on its devices, and the slots'
 gradients cross by one ``all_gather`` a wave and are summed in logical slot
 order on every process (``multihost.gather_images``, ``apply_images``), so
-every process takes
-the same Adam step and the replicas stay bit-identical. Rank 0 also ranks
+every process takes the same Adam step and the replicas stay bit-identical.
+The images cross card to card over NCCL where every process owns its card,
+else through host memory over gloo (``multihost.grad_route``; printed as
+``test_result:grad_route``). Rank 0 also ranks
 the nodes by a presample epoch and broadcasts the ranking (the shared-mmap
 ranking, dist_engine.cc:115-127).
 
@@ -20,8 +22,8 @@ Launch one process a rank:
 Each process trains one slot of a wave on ``--device``, by default
 ``cuda:<rank mod visible cards>``; ``--smoke`` runs on the CPU. Prints the
 reference's ``test_result:`` keys: ``ranking_checksum``, ``epoch<i>_loss``
-and ``param_checksum``. ``--save-params DIR`` writes this rank's parameters
-to ``DIR/params_rank<i>.pt``.
+and ``param_checksum``, and the port's ``grad_route``. ``--save-params
+DIR`` writes this rank's parameters to ``DIR/params_rank<i>.pt``.
 """
 from __future__ import annotations
 
@@ -135,11 +137,12 @@ def slot_image(model, batch, n: int, feats, labels, wsum: float, dst_caps,
     return codec_box[0].pack(image)
 
 
-def train_step(model, optimizer, host_images: torch.Tensor, codec,
+def train_step(model, optimizer, images: torch.Tensor, codec,
                wsum: float, device: torch.device) -> float:
-    """Sum the wave's images (every slot's, in logical order) into the
-    model's gradients and take one Adam step; returns the wave's loss."""
-    loss, _ = mh.apply_images(model, host_images, codec, device)
+    """Sum the wave's images (every slot's, in logical order, in host
+    memory or on a card) into the model's gradients and take one Adam
+    step; returns the wave's loss."""
+    loss, _ = mh.apply_images(model, images, codec, device)
     optimizer.step()
     return float(loss) / wsum
 
@@ -214,8 +217,12 @@ def main(argv: Sequence[str] = None) -> int:
     if device.type == "cuda":
         torch.cuda.set_device(device)
     # one slot a process: the wave is as wide as the world
-    W = len(mh.global_data_mesh([device]))
+    placements = mh.rank_devices([device])
+    W = len(placements)
     counts = [1] * W
+    group, route = mh.exchange_group(range(W), placements)
+    grad_device = device if route == "nccl" else None
+    log_test_result("grad_route", route)
 
     cfg, ds, plan = demo_setup(args.synthetic_nodes, args.batch_size,
                                args.num_hidden)
@@ -240,8 +247,9 @@ def main(argv: Sequence[str] = None) -> int:
             wsum = wave_weight(len(perm), wv, W, B)
             images = demo.images(epoch, wave, wsum)
             codec = demo.codec_box[0]
-            host_images = mh.gather_images(images, codec.nbytes, None, counts)
-            losses.append(train_step(demo.model, demo.optimizer, host_images,
+            gathered = mh.gather_images(images, codec.nbytes, group, counts,
+                                        grad_device)
+            losses.append(train_step(demo.model, demo.optimizer, gathered,
                                      codec, wsum, demo.device))
         print(f"host {host} epoch {epoch}: loss={np.mean(losses):.4f}",
               flush=True)

@@ -5,12 +5,13 @@ The source system dedicates whole GPUs to sampling or training, one process
 each (DistEngine::SampleInit/TrainInit, dist_engine.cc:231-465; role
 dispatch operation.cc:343-355). ``FactoredEngine`` drives every role device
 from one process; this engine gives each role its processes, joined by
-``torch.distributed`` (gloo):
+``torch.distributed`` (gloo; NCCL for the trainers' gradients):
 
 * Ranks ``[0, num_sampler_hosts)`` sample, the others train. Each process
   takes its local role devices (``devices``; by default
   ``cuda:<rank mod visible cards>``, so two processes on one card share
-  ``cuda:0``). Sampler process p owns the global sampler slots
+  ``cuda:0``; the CPU only where ``devices`` names it). Sampler process p
+  owns the global sampler slots
   ``[slot_offset[p], slot_offset[p + 1])``, one a local device; trainer
   process q the logical trainers ``[trainer_offset[q], ...)``.
 * Every process builds every ``DistShuffler`` and walks every wave, so the
@@ -29,9 +30,14 @@ from one process; this engine gives each role its processes, joined by
   stream, as ``Transport`` does.
 * With more than one trainer process the group's gradients cross by
   ``all_gather`` over the trainers' group and are summed in logical order
-  on each (:func:`~.multihost.gather_images`,
+  on each trainer's card (:func:`~.multihost.gather_images`,
   :func:`~.multihost.apply_images`); one trainer process sums its replicas
-  as ``FactoredEngine`` does.
+  as ``FactoredEngine`` does. The group is NCCL's where each trainer
+  process owns its cards, and the images cross card to card; where
+  processes share a card (NCCL refuses two ranks on one) or run on the
+  CPU, they cross through host memory over gloo. ``grad_route`` says
+  which (:func:`~.multihost.grad_route`), chosen from the placement at
+  init; the waves stay on the host ring either way.
 * Init follows the reference (:228-240): rank 0 ranks the cache and
   broadcasts the ranking before the trainers build the ``FeatureCache``;
   the samplers keep only the node -> slot table and ship each batch's miss
@@ -67,7 +73,8 @@ from .factored import (FactoredEngine, _GroupPipe, _edges, epoch_rows,
                        resolve_feat_on_trainer, step_generator)
 from .mesh import RoleMesh
 from .multihost import (ByteCodec, apply_images, default_device,
-                        gather_images, grad_image, host_buffer, skeleton)
+                        exchange_group, gather_images, grad_image,
+                        host_buffer, placed, skeleton)
 from .shuffler import DistShuffler, EpochShuffler
 
 log = get_logger(__name__)
@@ -120,7 +127,8 @@ class MultihostFactoredEngine(FactoredEngine):
     step, checkpoints); init and the epoch loop are role-split.
 
     ``devices``: this process's role devices (default: one,
-    :func:`~.multihost.default_device`). ``feat_on_trainer``: as
+    :func:`~.multihost.default_device`, which raises where there is no
+    card). ``feat_on_trainer``: as
     ``FactoredEngine``'s, decided on the first trainer process's first
     device and shared with every rank. ``cfg.num_sample_worker`` and
     ``cfg.num_train_worker`` are not read: the roles come from the
@@ -136,6 +144,9 @@ class MultihostFactoredEngine(FactoredEngine):
                 "MultihostFactoredEngine needs torch.distributed "
                 "(multihost.initialize_from_env); use FactoredEngine for "
                 "every role in one process")
+        # this process's devices first: without a card, the CPU only when
+        # named
+        local = [torch.device(d) for d in (devices or [default_device()])]
         world = dist.get_world_size()
         if not 1 <= num_sampler_hosts < world:
             raise ValueError(f"{num_sampler_hosts} sampler processes of "
@@ -145,7 +156,6 @@ class MultihostFactoredEngine(FactoredEngine):
         self.proc = dist.get_rank()
         self.is_sampler_host = self.proc < num_sampler_hosts
         self.first_trainer = num_sampler_hosts
-        local = [torch.device(d) for d in (devices or [default_device()])]
         self.local_devices = local
         if local[0].type == "cuda":
             # the process's own card: no context of it lands on cuda:0
@@ -156,7 +166,7 @@ class MultihostFactoredEngine(FactoredEngine):
         t0 = Timer()
         self.dedup_last_hop = True
 
-        # every rank's device count and the first trainer's table decision
+        # every rank's devices and the first trainer's table decision
         decision = -1
         if not self.is_sampler_host:
             try:
@@ -164,11 +174,11 @@ class MultihostFactoredEngine(FactoredEngine):
                     cfg, ds, self.compute_dtype, local[0], feat_on_trainer))
             except ValueError:
                 decision = -2
-        info = torch.tensor([len(local), decision], dtype=torch.int64)
-        infos = [torch.empty_like(info) for _ in range(world)]
-        dist.all_gather(infos, info)
-        counts = [int(x[0]) for x in infos]
-        decision = int(infos[self.first_trainer][1])
+        infos: List = [None] * world
+        dist.all_gather_object(infos, (placed(local), decision))
+        placements = [p for p, _ in infos]
+        counts = [len(p) for p in placements]
+        decision = infos[self.first_trainer][1]
         if decision == -2:
             # the first trainer refused its table: every rank raises that
             resolve_feat_on_trainer(cfg, ds, self.compute_dtype,
@@ -185,11 +195,18 @@ class MultihostFactoredEngine(FactoredEngine):
         self.t_lo = 0 if self.is_sampler_host else int(self.trainer_offset[q])
         self.t_hi = (0 if self.is_sampler_host
                      else int(self.trainer_offset[q + 1]))
-        # every rank makes every group (dist.new_group is collective)
+        # the trainers' gradient exchange, over NCCL where each trainer
+        # process owns its cards (every rank makes every group, in the
+        # same order: dist.new_group is collective); one trainer process
+        # exchanges nothing
         trainer_ranks = list(range(num_sampler_hosts, world))
-        grp = dist.new_group(trainer_ranks)
-        self.trainer_group = (grp if len(trainer_ranks) > 1
-                              and not self.is_sampler_host else None)
+        self.grad_route = None
+        self.trainer_group = None
+        if len(trainer_ranks) > 1:
+            grp, self.grad_route = exchange_group(trainer_ranks, placements)
+            if not self.is_sampler_host:
+                self.trainer_group = grp
+        self._grad_device = local[0] if self.grad_route == "nccl" else None
 
         seed_cap = self.plan.num_input_cap[0]
         self.shufflers = [
@@ -286,12 +303,12 @@ class MultihostFactoredEngine(FactoredEngine):
         log.info(
             "MultihostFactoredEngine rank %d of %d: %s on %s, %d sampler "
             "slots on %d process(es) + %d trainers, %d steps/epoch, "
-            "%d bytes a batch, cache=%s, feat_on_trainer=%s", self.proc,
-            world, "sampler" if self.is_sampler_host else "trainer",
+            "%d bytes a batch, cache=%s, feat_on_trainer=%s, grad_route=%s",
+            self.proc, world, "sampler" if self.is_sampler_host else "trainer",
             [str(d) for d in local], self.S, num_sampler_hosts, self.T,
             self.num_step, self.codec.nbytes,
             f"{cfg.cache_percentage:.0%}" if use_cache else "off",
-            self.feat_on_trainer)
+            self.feat_on_trainer, self.grad_route)
 
     # -- the schedule ---------------------------------------------------------
     def _live(self, wave: int, p: int) -> List[int]:
@@ -531,9 +548,10 @@ class MultihostFactoredEngine(FactoredEngine):
             if self._grad_codec is None:
                 self._grad_codec = ByteCodec(skeleton(image))
             images.append(self._grad_codec.pack(image))
-        host = gather_images(images, self._grad_codec.nbytes,
-                             self.trainer_group, self.trainer_counts)
-        loss, acc = apply_images(self.model, host, self._grad_codec, dev0)
+        gathered = gather_images(images, self._grad_codec.nbytes,
+                                 self.trainer_group, self.trainer_counts,
+                                 self._grad_device)
+        loss, acc = apply_images(self.model, gathered, self._grad_codec, dev0)
         self.optimizer.step()
         return loss / wsum, acc / wsum
 

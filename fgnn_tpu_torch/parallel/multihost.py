@@ -17,7 +17,9 @@ onto JAX's multi-process runtime; the port maps them onto
                              gradients, summed in logical order everywhere
                              (:func:`gather_images`, :func:`apply_images`;
                              no ring all-reduce, whose order would change
-                             the sum's bits)
+                             the sum's bits), over NCCL between cards that
+                             each rank owns, else through host memory
+                             (:func:`grad_route`, :func:`exchange_group`)
 
 Initialisation reads the reference's variables, so one app runs in one
 process or in several:
@@ -26,7 +28,7 @@ process or in several:
   FGNN_TPU_PROCESS_ID=<i> python -m fgnn_tpu_torch.examples.train_multihost
 
 ``FGNN_TPU_DIST_TIMEOUT`` (seconds, 600 by default) bounds every
-collective, so a lost peer fails the run instead of hanging it.
+collective, NCCL's too, so a lost peer fails the run instead of hanging it.
 """
 from __future__ import annotations
 
@@ -61,32 +63,70 @@ def initialize_from_env() -> bool:
         return False
     if dist.is_initialized():
         return True
-    timeout = env_int("FGNN_TPU_DIST_TIMEOUT", DEFAULT_TIMEOUT_S)
     dist.init_process_group(
         "gloo", init_method=f"tcp://{addr}",
         world_size=int(os.environ["FGNN_TPU_NUM_PROCESSES"]),
         rank=int(os.environ["FGNN_TPU_PROCESS_ID"]),
-        timeout=datetime.timedelta(seconds=timeout))
+        timeout=dist_timeout())
     log.info("multi-process: rank %d of %d", dist.get_rank(),
              dist.get_world_size())
     return True
 
 
+def dist_timeout() -> datetime.timedelta:
+    """``FGNN_TPU_DIST_TIMEOUT`` seconds (600 by default): every group's
+    bound on a collective."""
+    return datetime.timedelta(
+        seconds=env_int("FGNN_TPU_DIST_TIMEOUT", DEFAULT_TIMEOUT_S))
+
+
 def default_device(rank: Optional[int] = None) -> torch.device:
     """``cuda:<rank mod visible cards>``, so processes on a machine with
-    fewer cards than processes share them; the CPU where there is none."""
+    fewer cards than processes share them. Raises where there is no card:
+    a caller that wants the CPU names it."""
     rank = dist.get_rank() if rank is None else rank
     n = torch.cuda.device_count()
-    return torch.device("cuda", rank % n) if n else torch.device("cpu")
+    if not n:
+        raise RuntimeError(f"rank {rank}: no CUDA device; pass 'cpu' as "
+                           "its device to run on the CPU")
+    return torch.device("cuda", rank % n)
+
+
+class Placed(NamedTuple):
+    """A process's device as every process sees it: its name, and for a
+    card its UUID, which tells two names of one card (``cuda`` and
+    ``cuda:0``; two indices under different ``CUDA_VISIBLE_DEVICES``) from
+    one name on two hosts. ``card`` is None for a device that is not a
+    card."""
+    name: str
+    card: Optional[str]
+
+
+def placed(local_devices: Sequence) -> List[Placed]:
+    """This process's devices as :class:`Placed` (a card's UUID from its
+    device properties)."""
+    out = []
+    for d in map(torch.device, local_devices):
+        card = (str(torch.cuda.get_device_properties(d).uuid)
+                if d.type == "cuda" else None)
+        out.append(Placed(str(d), card))
+    return out
+
+
+def rank_devices(local_devices: Sequence) -> List[List[Placed]]:
+    """Every process's devices, in rank order. A collective: every process
+    calls it."""
+    out: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(out, placed(local_devices))
+    return out
 
 
 def global_data_mesh(local_devices: Sequence) -> List[Tuple[int, torch.device]]:
     """The data-parallel workers of every process, in rank order, as
     ``(rank, device)``: the port's counterpart of one mesh over every chip
     of every host. A collective: every process calls it."""
-    names: List[Any] = [None] * dist.get_world_size()
-    dist.all_gather_object(names, [str(d) for d in local_devices])
-    return [(r, torch.device(d)) for r, ds in enumerate(names) for d in ds]
+    return [(r, torch.device(d.name))
+            for r, ds in enumerate(rank_devices(local_devices)) for d in ds]
 
 
 def barrier(name: str = "fgnn") -> None:
@@ -300,6 +340,35 @@ def host_buffer(nbytes: int, pin: bool) -> torch.Tensor:
 
 
 # -- the gradient exchange ----------------------------------------------------
+def grad_route(placements: Sequence[Sequence[Placed]]) -> str:
+    """How the gradient images of the ranks whose devices ``placements``
+    lists (one list a rank, as :func:`rank_devices` gives them) cross:
+    ``"nccl"`` when every device is a card and no card serves two ranks
+    (NCCL refuses two ranks on one card), else ``"host"``, through host
+    memory over gloo. Cards are told apart by UUID, not by name. A function
+    of the placement alone, decided once at init; an NCCL failure fails
+    the run and never falls back."""
+    owner = {}
+    for rank, devices in enumerate(placements):
+        for d in devices:
+            if d.card is None or owner.setdefault(d.card, rank) != rank:
+                return "host"
+    return "nccl"
+
+
+def exchange_group(ranks: Sequence[int], placements: Sequence[Sequence]):
+    """``(group, route)``: a group over ``ranks`` for the gradient images,
+    NCCL on the route :func:`grad_route` picks for their ``placements``
+    (every rank's, from :func:`rank_devices`), else the default gloo backend.
+    A collective: every process calls it, members or not, in the same
+    order. Each member's current card must be set before its first NCCL
+    call (``torch.cuda.set_device``)."""
+    route = grad_route([placements[r] for r in ranks])
+    group = dist.new_group(list(ranks), timeout=dist_timeout(),
+                           backend="nccl" if route == "nccl" else None)
+    return group, route
+
+
 def grad_image(params: Sequence[torch.nn.Parameter], loss: torch.Tensor,
                acc: torch.Tensor):
     """A replica's part of a step: each parameter's gradient (zeros where
@@ -314,13 +383,15 @@ def grad_image(params: Sequence[torch.nn.Parameter], loss: torch.Tensor,
 
 
 def gather_images(images: Sequence[torch.Tensor], nbytes: int, group,
-                  counts: Sequence[int]) -> torch.Tensor:
-    """Every worker's packed image, in logical order, as one host uint8
-    tensor: ``images`` are this process's workers' (``nbytes`` each),
-    ``counts`` the workers of each process of ``group`` in rank order (the
-    logical order). One ``all_gather`` of equal-sized buffers."""
+                  counts: Sequence[int],
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+    """Every worker's packed image, in logical order, as one uint8 tensor:
+    ``images`` are this process's workers' (``nbytes`` each), ``counts``
+    the workers of each process of ``group`` in rank order (the logical
+    order). One ``all_gather`` of equal-sized buffers, in host memory, or
+    on ``device`` (this process's card) where ``group`` is NCCL's."""
     width = max(counts)
-    mine = torch.zeros(width * nbytes, dtype=torch.uint8)
+    mine = torch.zeros(width * nbytes, dtype=torch.uint8, device=device)
     for i, img in enumerate(images):
         mine[i * nbytes:(i + 1) * nbytes].copy_(img)
     bufs = [torch.empty_like(mine) for _ in counts]
@@ -328,24 +399,28 @@ def gather_images(images: Sequence[torch.Tensor], nbytes: int, group,
     return torch.cat([b[:c * nbytes] for b, c in zip(bufs, counts)])
 
 
-def apply_images(model: torch.nn.Module, host: torch.Tensor,
+def apply_images(model: torch.nn.Module, images: torch.Tensor,
                  codec: ByteCodec, device: torch.device):
     """Set ``model``'s gradients to the sum of the :func:`grad_image`
-    images in ``host`` (uint8, end to end, logical order): ``p.grad`` is
-    the left fold g_0 + g_1 + ... of the workers' gradients, skipping
-    absent ones, as the single-process engine sums its replicas into the
-    first. Returns the folded (loss, acc) terms, device scalars on
-    ``device``; the caller divides by the weight sum and steps."""
+    images in ``images`` (uint8, end to end, logical order; in host memory
+    or on a card): ``p.grad`` is the left fold g_0 + g_1 + ... of the
+    workers' gradients, skipping absent ones, as the single-process engine
+    sums its replicas into the first. Returns the folded (loss, acc)
+    terms, device scalars on ``device``; the caller divides by the weight
+    sum and steps."""
     nb = codec.nbytes
-    whole = host.to(device)
+    n = images.numel() // nb
+    whole = images.to(device)
     params = list(model.parameters())
     for p in params:
         p.grad = None
+    # the images' presence flags, read on the host in one copy
+    flags = torch.stack([codec.unpack(images[k * nb:(k + 1) * nb])[1]
+                         for k in range(n)]).cpu().tolist() if n else []
     loss = acc = None
-    for k in range(host.numel() // nb):
-        flags = codec.unpack(host[k * nb:(k + 1) * nb])[1].tolist()
+    for k in range(n):
         grads, _, la = codec.unpack(whole[k * nb:(k + 1) * nb])
-        for p, g, f in zip(params, grads, flags):
+        for p, g, f in zip(params, grads, flags[k]):
             if f:
                 p.grad = g if p.grad is None else p.grad + g
         loss = la[0] if loss is None else loss + la[0]

@@ -10,17 +10,22 @@ from the seed) through ``MultihostFactoredEngine``: one sampler process and
 one trainer process a further entry of ``--devices`` (the sampler's device
 first, then each trainer process's; all on ``cuda:0`` by default, so
 ``--devices cuda:0,cuda:1,cuda:2`` is S = 1 with T = 2 processes on cards 1
-and 2). Each process prints a JSON line: its epochs (time, loss, sampled
-edges and edges/s), the bytes its broadcasts moved and the seconds it
-waited on them, a lone broadcast of one wave's bytes timed after the
-epochs, its peak device memory and its row-gather launches. Then the same
-epochs through the single-process ``FactoredEngine`` on the same devices in
-this process, and whether the two agree bit for bit in losses and
-parameters. ``--deterministic-epochs K`` runs the first K epochs of both
-under deterministic algorithms (the gradients' scatter-adds use atomics
-otherwise, and the bits may move): on the H100 such an epoch takes about
-nine times as long, so K = 1 makes epoch 0 comparable bit for bit and
-leaves the later epochs' times as users see them. Prints one JSON line,
+and 2, and ``cuda:0,cuda:0,cuda:0,cuda:0`` puts three trainer processes on
+one card). Each process prints a JSON line: its epochs (time, loss,
+sampled edges and edges/s), the bytes its broadcasts moved and the seconds
+it waited on them, a lone broadcast of one wave's bytes timed after the
+epochs, its peak device memory, its row-gather launches and the route its
+gradients took (``grad_route``: ``nccl``, card to card, where each trainer
+process has a card of its own; ``host``, through host memory, where they
+share one; null with one trainer process). Then the same epochs through
+the single-process ``FactoredEngine`` on the same devices in this process,
+and whether the two agree bit for bit in losses and parameters.
+``--deterministic-epochs K`` runs the first K epochs of both under
+deterministic algorithms (the gradients' scatter-adds use atomics
+otherwise, and the bits may move) and compares the parameters after those
+K epochs too: on the H100 such an epoch takes about nine times as long, so
+K = 1 makes epoch 0 comparable bit for bit and leaves the later epochs'
+times as users see them. Prints one JSON line,
 with the card's name and power limit and the host's CPU, as its last line.
 Every child has a timeout and is killed when a peer fails. Without a CUDA
 device (and devices that name one) it exits 1.
@@ -43,6 +48,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 PROBE_BROADCASTS = 10
 # seconds a role process and each of its collectives may take
 TIMEOUT_S = 600
+# the first trainer's parameters after the deterministic epochs
+DETERMINISTIC_PARAMS = "params_multiprocess_deterministic.pt"
 
 
 def deterministic(args, epoch: int) -> None:
@@ -77,6 +84,10 @@ def child(args) -> int:
         r = eng.run_epoch(e)
         r["edges_per_s"] = r["sampled_edges"] / r["epoch_time"]
         epochs.append(r)
+        if (e + 1 == args.deterministic_epochs and args.out_dir
+                and rank == eng.first_trainer):
+            torch.save([p.detach().cpu() for p in eng.model.parameters()],
+                       os.path.join(args.out_dir, DETERMINISTIC_PARAMS))
     launches = dict(cuda_lib.launches)
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
@@ -97,6 +108,7 @@ def child(args) -> int:
         "batch_bytes": eng.codec.nbytes, "num_waves": eng.num_waves,
         "probe_broadcast_s": times[len(times) // 2],
         "peak_bytes": peak, "launches": launches,
+        "grad_route": eng.grad_route,
         "groups": sum(-(-x["num_step"] // eng.T) for x in epochs)}),
         flush=True)
     dist.barrier()
@@ -142,17 +154,20 @@ def single(args, devices):
         if d.type == "cuda":
             torch.cuda.reset_peak_memory_stats(d)
     cuda_lib.reset_launches()
-    epochs = []
+    epochs, det_params = [], None
     for e in range(args.epochs):
         deterministic(args, e)
         r = eng.run_epoch(e)
         r["edges_per_s"] = r["sampled_edges"] / r["epoch_time"]
         epochs.append(r)
+        if e + 1 == args.deterministic_epochs:
+            det_params = [p.detach().cpu().clone()
+                          for p in eng.model.parameters()]
     params = [p.detach().cpu() for p in eng.model.parameters()]
     peak = {str(d): torch.cuda.max_memory_allocated(d)
             for d in set(devs) if d.type == "cuda"}
     return {"init_s": init_s, "epochs": epochs, "peak_bytes": peak,
-            "launches": dict(cuda_lib.launches)}, params
+            "launches": dict(cuda_lib.launches)}, params, det_params
 
 
 def main(argv=None) -> int:
@@ -188,20 +203,30 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     multi = launch(args, devices)
     multi_s = time.perf_counter() - t
-    one, params = single(args, devices)
+    one, params, det_params = single(args, devices)
     mp = torch.load(os.path.join(args.out_dir, "params_multiprocess.pt"))
     trainer = next(r for r in multi if r["role"] == "trainer")
     losses_m = [x["loss"] for x in trainer["epochs"]]
     losses_s = [x["loss"] for x in one["epochs"]]
+    k = args.deterministic_epochs
+    det_equal = None
+    if det_params is not None:
+        det_equal = same_params(torch.load(
+            os.path.join(args.out_dir, DETERMINISTIC_PARAMS)), det_params)
     print(json.dumps({
         **card_meta(), "devices": devices,
-        "deterministic_epochs": args.deterministic_epochs,
+        "grad_route": trainer["grad_route"],
+        "deterministic_epochs": k,
         "multi_wall_s": multi_s, "multi": multi, "single": one,
         "epoch0_loss_equal": losses_m[0] == losses_s[0],
+        "deterministic_params_equal": det_equal,
         "losses_equal": losses_m == losses_s,
-        "params_equal": len(mp) == len(params) and all(
-            torch.equal(a, b) for a, b in zip(mp, params))}), flush=True)
+        "params_equal": same_params(mp, params)}), flush=True)
     return 0
+
+
+def same_params(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 if __name__ == "__main__":

@@ -114,7 +114,7 @@ def test_chip_smoke_source_imports_no_jax_package(tmp_path):
     "examples/train_multihost.py", "examples/train_factored_multihost.py",
     "tools/multiprocess_epochs.py", "exp/fig13.py", "exp/fig14.py",
     "exp/fig15.py", "exp/fig16a.py", "exp/fig17a.py", "exp/table4.py",
-    "exp/table5.py"])
+    "exp/table5.py", "tools/multichip.py"])
 def test_multi_device_modules_import_no_jax(module):
     """The multi-device engines and what drives them are among the scanned
     sources, and none of their imports, at any depth, names a forbidden

@@ -223,6 +223,43 @@ def test_collectives_in_a_one_rank_group(monkeypatch):
             torch.distributed.destroy_process_group()
 
 
+def test_engine_without_devices_raises_where_there_is_no_card(monkeypatch):
+    """No card and no device named: the engine raises, in a one-rank gloo
+    group, instead of running on the CPU; ``default_device`` too."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setenv("FGNN_TPU_COORDINATOR",
+                       f"127.0.0.1:{mh.free_port()}")
+    monkeypatch.setenv("FGNN_TPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("FGNN_TPU_PROCESS_ID", "0")
+    monkeypatch.setenv("FGNN_TPU_DIST_TIMEOUT", "60")
+    try:
+        assert mh.initialize_from_env()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mh.default_device()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MultihostFactoredEngine(config(), app_dataset(2000))
+        group, route = mh.exchange_group([0], mh.rank_devices(["cpu"]))
+        assert route == "host"
+        images = [torch.arange(32, dtype=torch.uint8)]
+        assert torch.equal(mh.gather_images(images, 32, group, [1]),
+                           images[0])
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def test_processes_report_their_gradient_route(runs):
+    """Two trainer processes on the CPU exchange through host memory; one
+    trainer process exchanges nothing; the demo's ranks on the CPU go
+    through host memory too."""
+    _, three, _ = outputs(runs, "three")
+    assert [v["grad_route"] for v in three] == ["host"] * 3
+    _, two, _ = outputs(runs, "factored")
+    assert [v["grad_route"] for v in two] == ["None"] * 2
+    _, demo, _ = outputs(runs, "demo")
+    assert [v["grad_route"] for v in demo] == ["host"] * 2
+
+
 def test_byte_codec_round_trips_a_wave():
     """A batch and its miss index through the byte image: the same tensors,
     dtypes and static fields, the images of two batches end to end."""

@@ -96,7 +96,7 @@ def epoch_runs(ds):
 
 
 @pytest.mark.parametrize("cfg", [CFG, GCN_CFG], ids=["graphsage", "gcn"])
-@pytest.mark.parametrize("W", [1, 2])
+@pytest.mark.parametrize("W", [1, 2, 4])
 def test_sgnn_epoch_matches_reference(epoch_runs, cfg, W):
     """One epoch: the loss and the parameters within 1e-4, the sampled
     edges and the overflow flag exact. GraphSAGE skips the last hop's
