@@ -1179,7 +1179,8 @@ def remap_phase(dev, card, ds):
     """The direct-index dedup against the one-sort dedup on the main path's
     two hops (GraphSAGE [25, 10], batch 8000: hop 0 dedups on the main
     path, hop 1 on the host-resident path and GCN's): equal outputs, and
-    both timed with CUDA events."""
+    both timed with CUDA events; the one-sort dedup with counts (GCN's)
+    too, its first four outputs equal to the call's without."""
     import torch
     from fgnn_tpu_torch.config import SampleType
     from fgnn_tpu_torch.ops.hashtable import (unique_and_remap,
@@ -1201,19 +1202,24 @@ def remap_phase(dev, card, ds):
         cap = plan.num_unique_cap[hop]
         sort = unique_and_remap(cur, num, nbrs, cap)
         direct = unique_and_remap_direct(cur, num, nbrs, cap, ds.num_node)
-        for name, x, y in zip(("unique", "num_unique", "locals", "overflow"),
-                              sort, direct):
+        counted = unique_and_remap(cur, num, nbrs, cap, with_counts=True)
+        for name, x, y, z in zip(("unique", "num_unique", "locals", "overflow"),
+                                 sort, direct, counted):
             check(torch.equal(x, y), f"hop {hop}: direct remap {name} != "
                   "the one-sort dedup's")
-        s_ms, d_ms = median_ms([
+            check(torch.equal(x, z), f"hop {hop}: the dedup with counts: "
+                  f"{name} != the one without")
+        s_ms, c_ms, d_ms = median_ms([
             lambda: unique_and_remap(cur, num, nbrs, cap),
+            lambda: unique_and_remap(cur, num, nbrs, cap, with_counts=True),
             lambda: unique_and_remap_direct(cur, num, nbrs, cap, ds.num_node)],
             inner=2)
-        times[hop] = (s_ms, d_ms)
+        times[hop] = (s_ms, c_ms, d_ms)
         print(f"  hop {hop}: {cur.shape[0]} frontier slots, {nbrs.shape[0]} "
               f"picks, cap {cap}, {int(sort[1])} unique: one-sort dedup "
-              f"{s_ms:.4f} ms, direct-index dedup {d_ms:.4f} ms over a "
-              f"{ds.num_node}-node table, outputs equal ({card})")
+              f"{s_ms:.4f} ms, with counts {c_ms:.4f} ms, direct-index dedup "
+              f"{d_ms:.4f} ms over a {ds.num_node}-node table, outputs equal "
+              f"({card})")
         cur, num = sort[0], sort[1]
     del eng
     return times

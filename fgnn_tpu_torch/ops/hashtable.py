@@ -108,6 +108,15 @@ def unique_and_remap(
     new leaders ``S + rank``), members take their leader's, and the locals
     go back through the sort permutation.
 
+    Members find their leader without a scan: the groups are numbered by
+    ``gid = cumsum(first) - 1``, each leader scatters its sorted position to
+    ``gstart[gid]`` (``gstart[G:] = n`` past the last group), and a gather
+    ``gstart[gid]`` gives every slot its leader, ``gstart[gid + 1]`` the
+    next group's start. The reference propagates the same values with
+    ``lax.cummax`` and a reverse ``lax.cummin``
+    (``fgnn_tpu/ops/hashtable.py:144``, ``:176``); the outputs are equal.
+    No step reads a value back to the host.
+
     Returns ``(unique [out_cap] int32 -1-padded seeds-first, num_unique,
     nbr_local [E] int32 (-1 for padding and clipped ids), overflowed)``.
 
@@ -139,8 +148,15 @@ def unique_and_remap(
     new_rank = torch.cumsum(new_leader, 0) - 1
     leader_local = torch.where(st == 0, sp, S + new_rank)
 
-    # propagate each group's leader position forward, then take its local
-    lead_idx = torch.cummax(torch.where(first, pos, 0), 0).values
+    # each group's start, scattered by its leader to the group's id; the
+    # other slots write to a trash slot. gstart[G:] stays n, one past the
+    # last group. Only the gathers outlive this block.
+    gid = torch.cumsum(first, 0) - 1
+    gstart = torch.full((n + 2,), n, dtype=torch.int64, device=device)
+    gstart[torch.where(first, gid, n + 1)] = pos
+    lead_idx = gstart[gid]
+    nxt_after = gstart[gid + 1] if with_counts else None
+    del gid, gstart
     local_sorted = torch.where(is_pad, -1, leader_local[lead_idx])
     local_sorted = torch.where(local_sorted >= out_cap, -1, local_sorted)
     num_new = new_leader.sum()
@@ -163,11 +179,7 @@ def unique_and_remap(
     if not with_counts:
         return unique, num_unique.int(), nbr_local, overflowed
 
-    # group size at each leader: distance to the next group start, found
-    # by a reverse cummin (torch has none: flip, cummin, flip)
-    starts = torch.where(first, pos, n)
-    nxt = torch.flip(torch.cummin(torch.flip(starts, (0,)), 0).values, (0,))
-    nxt_after = torch.cat([nxt[1:], nxt.new_full((1,), n)])
+    # group size at each leader: distance to the next group's start
     cnt = torch.where(is_pad, 0, nxt_after - pos - (st == 0).long())
     cnt = torch.where((st == 0) & ~first, 0, cnt)     # duplicate seed slots
     # every seed slot writes its own position; new leaders kept under the

@@ -32,7 +32,9 @@ from fgnn_tpu_torch.ops import hashtable as thash
 from fgnn_tpu_torch.ops import sampling as tsamp
 from fgnn_tpu_torch.train import loop as tloop
 from test_model_golden import golden_graphconv, make_block
-from test_torch_sampling import _remap_cases, plan_for, seeds_for
+from test_torch_sampling import (_property_case, _remap_cases,
+                                 assert_remap_equal, plan_for,
+                                 seeds_for)
 from torch_parity import (assert_batches_equal, batch_to_torch, block_to_torch,
                           jax_uniforms, to_numpy, to_torch)
 
@@ -90,6 +92,20 @@ def test_unique_and_remap_with_counts_matches(case):
     for name, jv, tv in zip(("unique", "num", "locals", "ovf", "counts"),
                             jout, tout):
         np.testing.assert_array_equal(np.asarray(jv), tv.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_unique_and_remap_under_deterministic_algorithms(with_counts):
+    """The multi-device gates and a process per role's epoch 0 run the
+    dedup under deterministic algorithms: its scatters must be allowed
+    there and give the reference's outputs."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for seed in (1, 5):     # duplicate seeds; a cap below the unique count
+            assert_remap_equal(*_property_case(seed), with_counts)
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 # --- src_out_deg in the sampler's three branches ----------------------

@@ -101,6 +101,82 @@ def test_unique_and_remap_matches(case):
     assert tu.dtype == tl.dtype == torch.int32
 
 
+PROPERTY_KINDS = ("general", "duplicate seeds", "all padding", "no neighbours",
+                  "one group", "cap below the unique count")
+
+
+def _property_case(seed):
+    """A dedup stream drawn from ``seed``; ``PROPERTY_KINDS[seed % 6]`` names
+    the edge it reaches. Returns ``(seeds, num_seeds, neighbors, out_cap)``."""
+    rng = np.random.default_rng(seed)
+    kind = PROPERTY_KINDS[seed % len(PROPERTY_KINDS)]
+    S = int(rng.integers(2, 48))
+    E = 0 if kind == "no neighbours" else int(rng.integers(1, 400))
+    pool = S + int(rng.integers(1, 600))
+    seeds = np.full(S, -1, np.int32)
+    n_seed = int(rng.integers(2, S + 1))
+    seeds[:n_seed] = rng.choice(pool, n_seed, replace=False)
+    nbrs = rng.integers(0, pool, E).astype(np.int32)
+    nbrs[rng.random(E) < 0.5 * rng.random()] = -1
+    if kind == "duplicate seeds":
+        seeds[n_seed - 1] = seeds[0]
+    elif kind == "all padding":
+        n_seed = 0
+        seeds[:] = -1
+        nbrs[:] = -1
+    elif kind == "one group":
+        S, n_seed = 1, 1
+        seeds = seeds[:1]
+        nbrs[:] = seeds[0]
+    elif kind == "cap below the unique count":
+        nbrs[0] = np.setdiff1d(np.arange(pool), seeds)[0]
+    num_new = np.setdiff1d(nbrs[nbrs >= 0], seeds).size
+    if kind == "cap below the unique count":
+        cap = S + int(rng.integers(0, num_new))
+    else:
+        cap = S + int(rng.integers(0, E + 8))
+    return seeds, n_seed, nbrs, cap
+
+
+def assert_remap_equal(seeds, n, nbrs, cap, with_counts):
+    """The port's ``unique_and_remap`` against the reference's on one
+    stream: every output equal and int32 (the flag bool)."""
+    jout = jhash.unique_and_remap(jnp.asarray(seeds), jnp.int32(n),
+                                  jnp.asarray(nbrs), cap,
+                                  with_counts=with_counts)
+    tout = thash.unique_and_remap(torch.from_numpy(seeds),
+                                  torch.tensor(n, dtype=torch.int32),
+                                  torch.from_numpy(nbrs), cap,
+                                  with_counts=with_counts)
+    names = ("unique", "num_unique", "locals", "overflowed", "counts")
+    assert len(tout) == len(jout) == (5 if with_counts else 4)
+    for name, jv, tv in zip(names, jout, tout):
+        np.testing.assert_array_equal(np.asarray(jv), tv.numpy(),
+                                      err_msg=name)
+        assert tv.dtype == (torch.bool if name == "overflowed"
+                            else torch.int32), name
+    return tout
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("seed", range(2 * len(PROPERTY_KINDS)))
+def test_unique_and_remap_property(seed, with_counts):
+    seeds, n, nbrs, cap = _property_case(seed)
+    kind = PROPERTY_KINDS[seed % len(PROPERTY_KINDS)]
+    out = assert_remap_equal(seeds, n, nbrs, cap, with_counts)
+    # the case reaches the edge it names
+    if kind == "duplicate seeds":
+        assert np.unique(seeds[:n]).size < n
+    elif kind == "all padding":
+        assert (seeds < 0).all() and (nbrs < 0).all() and int(out[1]) == 0
+    elif kind == "no neighbours":
+        assert nbrs.size == 0
+    elif kind == "one group":
+        assert np.unique(np.concatenate([seeds, nbrs])).size == 1
+    elif kind == "cap below the unique count":
+        assert bool(out[3])
+
+
 # --- samplers with injected uniforms ------------------------------------
 
 def test_floyd_matches_on_degree_edge_cases():
