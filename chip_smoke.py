@@ -6,8 +6,9 @@
 Phases, none of which catches a failure (any failure exits non-zero):
   1. device: needs CUDA; prints the card's name and power limit
      (nvidia-smi) and turns TF32 off for float32 products;
-  2. build: compiles both kernels (row gather, streaming pass) from
-     fgnn_tpu_torch/csrc with nvcc for sm_90a, one nvcc each, together;
+  2. build: compiles the four kernels (row gather, streaming pass, segment
+     sum, row scatter-add) from fgnn_tpu_torch/csrc with nvcc for sm_90a,
+     one nvcc each, together;
   3. row gather against its plain version: bit-equal (torch.equal) at the
      main path's two shapes and on a matrix of dtypes, widths, alignments
      and id patterns; both, and ``torch.index_select`` over the same rows,
@@ -17,7 +18,11 @@ Phases, none of which catches a failure (any failure exits non-zero):
      uniforms;
   5. the main path: GraphSAGE arch1 on the 1M-node synthetic graph at the
      benchmark's configuration (bench.py), two epochs through
-     OneChipEngine, with the row gather's launch count taken over that run;
+     OneChipEngine, with the row gather's launch count taken over that run
+     (three a step) and the segment sum's and the scatter-add's (one each
+     a step: layer 2's regular block; layer 1 aggregates the input
+     features, which take no gradient, so its dst_invperm unpermute has no
+     backward);
   6. streaming pass against its plain version: prints the persistent
      launch (grid, tile, ring depth, CTAs per SM); bit-equal on ragged,
      narrow, misaligned and one-row inputs, on sizes cut around the stage
@@ -30,8 +35,10 @@ Phases, none of which catches a failure (any failure exits non-zero):
   8. small input, GCN with the 3-layer fanout: card against CPU as in 4;
   9. GCN at the source paper's Table-1 configuration ([5, 10, 15], batch
      8000, hidden 256) on the same graph: two epochs through run_epochs,
-     the row gather's launch count over them, the first step's sampled
-     edges against the NumPy sampler, then evaluate() on the test set;
+     the row gather's launch count over them (four a step), the segment
+     sum's and the scatter-add's (three each a step, one a layer), the
+     first step's sampled edges against the NumPy sampler, then evaluate()
+     on the test set;
  10. small input, PinSAGE (3 random-walk hops, dropout 0): card against
      CPU as in 4, with injected walk uniforms;
  11. PinSAGE at the reference app's configuration (3 hops of K=5, W=4
@@ -96,12 +103,13 @@ Phases, none of which catches a failure (any failure exits non-zero):
      uninterrupted epoch 1 within 1e-5. Then the app
      (``python -m fgnn_tpu_torch.examples.train_gnn``) as a subprocess at
      the bench configuration (GraphSAGE arch1 [25, 10], batch 8000, hidden
-     256, 1M nodes): three epochs at profile level 1, two at level 3 with
+     256, 1M nodes): two epochs at profile level 1, one at level 3 with
      the trace and node access, each parsed with the runner's parse_log:
      the keys, non-zero L2/L3 items at level 3, the trace's L0-L2 lanes,
      the row gather's launches (three a step), the same epoch-0 loss
      within 1e-4; then the app's level-1 configuration driven through
-     OneChipEngine in this process, its steady epoch beside the app's;
+     OneChipEngine in this process for two epochs, its steady epoch
+     beside the app's;
  21. the Table-1 ablation (``python -m fgnn_tpu_torch.exp.table1``) at its
      defaults with two epochs, one row at a time: five rows, each rc 0
      with a finite epoch_time and non-zero stage columns. It runs beside
@@ -152,17 +160,18 @@ Phases, none of which catches a failure (any failure exits non-zero):
      ``FactoredEngine`` on [cuda:0, cuda:0] in that process: losses and
      parameters bit-equal;
  30. a process per role at the bench configuration (``python -m
-     fgnn_tpu_torch.tools.multiprocess_epochs``, three epochs, sampler and
+     fgnn_tpu_torch.tools.multiprocess_epochs``, two epochs, sampler and
      trainer on cuda:0): finite, falling losses, three row-gather launches
      a group in the trainer process, the epoch-0 loss (an epoch under
-     deterministic algorithms) equal to ``FactoredEngine``'s in one
-     process; epochs 1-2's times beside it, the bytes and seconds a wave
-     takes to cross. Then the
+     deterministic algorithms, so through the scatter-add's deterministic
+     path) equal to ``FactoredEngine``'s in one process; epoch 1's time
+     beside it, the bytes and seconds a wave takes to cross. Then the
      data-parallel demo (``train_multihost``) as 2 processes on cuda:0: the
      same parameter checksum on both, a falling loss;
  31. one runner row end to end: Table 4's arch5 and arch6 rows at n = 2
      (GCN [5, 10, 15], its own 200,000-node graph, level 1 and level 2
-     runs): rc 0, finite epoch times, stage columns, launches.
+     runs, two epochs each): rc 0, finite epoch times, stage columns,
+     launches.
  32. converted data on the card: the vendored ogbn-products fixture (300
      nodes, OGB's raw csv.gz layout) through the port's datagen
      (``fgnn_tpu_torch/data/datagen.py``) into
@@ -226,11 +235,24 @@ Phases, none of which catches a failure (any failure exits non-zero):
      K1 launched in its timed run (the launches join the ``kernels`` line's
      count). Its times are not measurements: PERF.md takes the cells'
      numbers from ``python -m bench_torch.spread``.
+ 38. the segment sum (K4, ``csrc/segment_sum_rows.cu``) and the row
+     scatter-add (K5, ``csrc/scatter_add_rows.cu``) on the first batch of
+     phases 9 and 5's engines, every block as the training step takes it
+     (``fgnn_tpu_torch.tools.segment_kernels``): GCN's three regular blocks
+     (float32, 256 / 256 / 172 wide) and GraphSAGE's regular hop-0 block
+     (bf16, 256 wide) through K4 and K5's regular mode, GraphSAGE's
+     ``dst_invperm`` unpermute (bf16, 128 wide) through K5's general mode.
+     K4 and atomic K5 against their plain versions within the float32
+     summation-order bound of each element, and bit-equal on
+     integer-valued rows; K5 under deterministic algorithms bit-equal over
+     two runs and to the plain version on integer-valued rows; each timed
+     beside its plain version, its library call (``where`` + ``sum``,
+     ``index_add_``) and its bound. It runs right after phase 9.
 The app and role processes read the bytecode this process compiles
 (``fgnn_tpu_torch/_build/pycache``): without it each one compiles torch's
 sources again on a machine whose packages hold none.
 The 1M-node graph is built once and shared by 5, 9, 11, 13, 15, 16, 17,
-19 and 24-26 (the apps and phase 23's process build their own). Prints
+19, 24-26 and 38 (the apps and phase 23's process build their own). Prints
 a JSON line of kernel results (each with its bound on this card and the
 time of the one PyTorch call that computes the same function), then as its
 last line ``{"ok": true, "device": {...}}``.
@@ -267,7 +289,7 @@ CACHE_SHARES = (0.1, 0.2)
 # up to degree 600
 TV_BOUND = 0.02
 # gather_rows launches in one GAT training step at [25, 10] with the tiered
-# no-dedup last hop (forward only; the backward is a torch scatter-add):
+# no-dedup last hop (forward only; the backward is the scatter-add kernel):
 GAT_LAUNCHES_PER_STEP = (
     1    # the feature gather
     + 1  # layer 1: er[dst] over the tiered block (el[src], feat[src] slice)
@@ -276,10 +298,16 @@ GAT_LAUNCHES_PER_STEP = (
     + 1  # layer 2: er[dst]
     + 1  # layer 2: feat[src]
 )
+# segment sum (K4) and scatter-add (K5) launches a training step: one each
+# a regular, gathered block with a gradient. GCN: its three layers.
+# GraphSAGE [25, 10]: layer 2's hop-0 block; layer 1 aggregates the input
+# features, which take no gradient, so its dst_invperm gather has no backward
+GCN_KERNEL_STEPS = {"segment_sum_rows": 3, "scatter_add_rows": 3}
+SAGE_KERNEL_STEPS = {"segment_sum_rows": 1, "scatter_add_rows": 1}
 
 
 # the H100 SXM data sheet's memory rate (700 W); a kernel's bound is the
-# bytes it must move over this rate (both kernels move bytes, no products)
+# bytes it must move over this rate (every kernel moves bytes: no products)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -534,6 +562,7 @@ def main_path_phase(dev, card, ds):
               f"({card})")
         check(not eng.last_overflowed, f"epoch {epoch} overflowed its caps")
     launches = cuda_lib.launches.get("gather_rows", 0)
+    counts = dict(cuda_lib.launches)
     steps = sum(r["num_step"] for r in results)
     print(f"  JAX reference (TPU v5e, for comparison only; the RNGs differ): "
           f"epoch-1 loss {JAX_EPOCH1_LOSS}, {JAX_EDGES_PER_EPOCH[0]}-"
@@ -548,7 +577,8 @@ def main_path_phase(dev, card, ds):
         check(rel < 0.01, f"sampled_edges {r['sampled_edges']} off by {rel:.3%}")
     # per step: feature gather, layer-1 dst_invperm, layer-2 gather_src
     check(launches == 3 * steps, f"{launches} launches for {steps} steps")
-    return launches
+    check_kernel_steps(counts, SAGE_KERNEL_STEPS, steps)
+    return launches, eng, counts
 
 
 def stream_check_phase(dev, card):
@@ -735,12 +765,26 @@ def first_step_phase(dev, eng, np_edges, source):
     check(not bool(batch.overflowed), "the first step's batch overflowed")
 
 
-def train_phase(dev, card, ds, eng, launches_per_step, below_uniform=True):
+def check_kernel_steps(counts, per_step, steps):
+    """Each kernel of ``per_step`` launched its count a step over ``steps``
+    steps, by the launch counts ``counts``."""
+    for name, n in per_step.items():
+        got = counts.get(name, 0)
+        print(f"  {name} launches {got} over {steps} steps "
+              f"({got / steps:g} a step)")
+        check(got == n * steps, f"{got} {name} launches for {steps} steps, "
+              f"not {n} a step")
+
+
+def train_phase(dev, card, ds, eng, launches_per_step, below_uniform=True,
+                kernel_steps=None, counts=None):
     """Two epochs through run_epochs, then evaluate() on the test set.
     Gates: finite losses, epoch 1 below epoch 0 (and below ln 172, the
     loss of a uniform guess, if ``below_uniform``), no cap overflow,
-    ``launches_per_step`` row-gather launches a step, accuracy in
-    (1/172, 1]. Returns (results, launches)."""
+    ``launches_per_step`` row-gather launches a step (and each kernel of
+    ``kernel_steps`` its count a step), accuracy in (1/172, 1]. Every
+    kernel's launches over the two epochs go into ``counts``. Returns
+    (results, launches)."""
     import torch
     from fgnn_tpu_torch.ops import cuda_lib
 
@@ -748,6 +792,9 @@ def train_phase(dev, card, ds, eng, launches_per_step, below_uniform=True):
     cuda_lib.reset_launches()
     results = eng.run_epochs(0, 2)
     launches = cuda_lib.launches.get("gather_rows", 0)
+    if counts is not None:
+        counts.update(cuda_lib.launches)
+    seen = dict(cuda_lib.launches)
     peak = torch.cuda.max_memory_allocated(dev)
     for r in results:
         print(f"  epoch {r['epoch']}: loss {r['loss']:.4f} acc {r['acc']:.4f} "
@@ -771,6 +818,7 @@ def train_phase(dev, card, ds, eng, launches_per_step, below_uniform=True):
     check(not eng.last_overflowed, "an epoch overflowed its caps")
     check(launches == launches_per_step * steps,
           f"{launches} launches for {steps} steps")
+    check_kernel_steps(seen, kernel_steps or {}, steps)
     check(1.0 / NUM_CLASS < acc <= 1.0, f"evaluate() accuracy {acc}")
     return results, launches
 
@@ -786,8 +834,24 @@ def gcn_phase(dev, card, ds):
           "GCN must dedup its last hop, untiered")
     first_step_phase(dev, eng, lambda seeds, n: numpy_first_step_edges(
         ds, eng, seeds, n), "NumPy sampler")
-    # per step: the feature gather and the three layers' gather_src
-    return train_phase(dev, card, ds, eng, 4)[1]
+    # per step: the feature gather and the three layers' gather_src; each
+    # layer's segment sum and, in the backward, its scatter-add
+    counts = {}
+    launches = train_phase(dev, card, ds, eng, 4,
+                           kernel_steps=GCN_KERNEL_STEPS, counts=counts)[1]
+    return launches, eng, counts
+
+
+def segment_kernel_phase(dev, card, engines):
+    """Phase 38 (see the module docstring). Returns the results of
+    ``tools.segment_kernels.run``."""
+    from fgnn_tpu_torch.tools import segment_kernels
+
+    t0 = time.perf_counter()
+    results = segment_kernels.run(dev, card, engines)
+    print(f"  {len(results)} blocks checked and timed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return results
 
 
 def pinsage_phase(dev, card, ds):
@@ -1688,8 +1752,8 @@ def app_phase(card):
     out = os.path.join(REPO, "chiprun_out", "smoke_app")
     runs = {}
     for label, level, epochs, env in (
-            ("level1", 1, 3, {}),
-            ("level3", 3, 2, {k: "1" for k in OBSERVE_ENV})):
+            ("level1", 1, 2, {}),
+            ("level3", 3, 1, {k: "1" for k in OBSERVE_ENV})):
         t0 = time.perf_counter()
         r = run_app(APP_ARGS + ["--profile-level", str(level),
                                 "--num-epoch", str(epochs)], out, label,
@@ -1753,20 +1817,19 @@ def engine_driven(app, app3, card):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="graphsage")
     common_config.add_common_arguments(p)
-    args = p.parse_args(APP_ARGS + ["--num-epoch", "3"])
+    args = p.parse_args(APP_ARGS + ["--num-epoch", "2"])
     Profiler.reset()
     cfg = common_config.build_run_config(
         args, args.model, common_config.MODEL_SAMPLE_TYPE[args.model])
     eng = OneChipEngine(cfg, common_config.load_app_dataset(args),
                         torch.device(args.device))
-    r = [eng.run_epoch(e) for e in range(3)]
-    steady = sum(x["epoch_time"] for x in r[1:]) / 2
+    r = [eng.run_epoch(e) for e in range(2)]
+    steady = r[1]["epoch_time"]
     check(abs(r[0]["loss"] - float(app["first_epoch_loss"])) <= 1e-4,
           f"engine-driven epoch-0 loss {r[0]['loss']} != the app's "
           f"{app['first_epoch_loss']}")
     print(f"  the app's configuration driven through OneChipEngine here: "
-          f"epochs 1-2 {r[1]['epoch_time']:.4f} / {r[2]['epoch_time']:.4f} s, "
-          f"mean {steady:.4f} s; the app's {app['epoch_time']} s "
+          f"epoch 1 {steady:.4f} s; the app's {app['epoch_time']} s "
           f"({float(app['epoch_time']) / steady - 1:+.1%}) ({card})")
     ms = {"sample": [], "extract": [], "train": []}
     for _, (seeds, n, _) in zip(range(8), eng.shuffler.batches(len(r))):
@@ -2277,7 +2340,7 @@ def multiprocess_phase(card):
     with open(log_path, "w") as f:
         proc = subprocess.run(
             [sys.executable, "-m", "fgnn_tpu_torch.tools.multiprocess_epochs",
-             "--epochs", "3", "--deterministic-epochs", "1", "--out-dir",
+             "--epochs", "2", "--deterministic-epochs", "1", "--out-dir",
              out_dir],
             stdout=f, stderr=subprocess.STDOUT, cwd=REPO, timeout=900)
     with open(log_path) as f:
@@ -2323,7 +2386,7 @@ def multiprocess_phase(card):
     check(r["epoch0_loss_equal"], "the epoch-0 loss of the processes differs "
           "from one process's")
     print(f"  epoch-0 loss equal (deterministic algorithms): "
-          f"{r['epoch0_loss_equal']}; epochs 1-2 (atomics): every loss "
+          f"{r['epoch0_loss_equal']}; epoch 1 (atomics): every loss "
           f"{r['losses_equal']}, parameters {r['params_equal']}")
     n = torch.cuda.device_count()
     print(f"  the placements across cards did not run: the smoke needs one "
@@ -2358,7 +2421,7 @@ def runner_phase(card):
     out = os.path.join(REPO, "chiprun_out", "smoke_table4")
     t0 = time.perf_counter()
     rc = table4.main(["--models", "gcn", "--num-workers", "2", "--devices",
-                      "cuda:0", "--out-dir", out])
+                      "cuda:0", "--num-epoch", "2", "--out-dir", out])
     check(rc == 0, f"table4: rc {rc}, see {out}")
     with open(os.path.join(out, "table4.json")) as f:
         rows = json.load(f)["results"]
@@ -2764,7 +2827,7 @@ def main() -> int:
     from fgnn_tpu_torch.tools.gather_campaign import card_name
 
     t_start = time.perf_counter()
-    print("[1/37] device")
+    print("[1/38] device")
     card = card_name()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -2776,176 +2839,184 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
 
-    print("[2/37] build")
-    kernels = ("gather_rows", "stream_add_one")
+    print("[2/38] build")
+    kernels = ("gather_rows", "stream_add_one", "segment_sum_rows",
+               "scatter_add_rows")
     cuda_lib.build(kernels)
     for name in kernels:
         print(f"  {name} built in {cuda_lib.build_seconds[name]:.2f} s (all "
               f"built together) -> {cuda_lib.library_path(name)}")
 
-    print("[3/37] row gather against plain version")
+    print("[3/38] row gather against plain version")
     max_err, timing = kernel_phase(dev, card)
 
-    print("[4/37] small input, GraphSAGE: card against CPU")
+    print("[4/38] small input, GraphSAGE: card against CPU")
     small_input_phase(dev)
 
-    print("[5/37] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
+    print("[5/38] main path: GraphSAGE arch1, 1M-node graph, 2 epochs")
     ds = big_dataset()
-    sage_launches = main_path_phase(dev, card, ds)
+    sage_launches, sage_eng, sage_counts = main_path_phase(dev, card, ds)
 
-    print("[6/37] streaming pass against plain version")
+    print("[6/38] streaming pass against plain version")
     s_err, s_timing = stream_check_phase(dev, card)
 
-    print("[7/37] gather campaign: stream and kernel phases")
+    print("[7/38] gather campaign: stream and kernel phases")
     s_launches, _, _ = campaign_phase(dev, card)
 
-    print("[8/37] small input, GCN [5, 10, 15]: card against CPU")
+    print("[8/38] small input, GCN [5, 10, 15]: card against CPU")
     small_input_phase(dev, model="gcn", fanout=(5, 10, 15))
 
-    print("[9/37] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
-    gcn_launches = gcn_phase(dev, card, ds)
+    print("[9/38] GCN Table 1: [5, 10, 15], 1M-node graph, 2 epochs + evaluate")
+    gcn_launches, gcn_eng, gcn_counts = gcn_phase(dev, card, ds)
 
-    print("[10/37] small input, PinSAGE: card against CPU")
+    print("[38/38] segment sum (K4) and row scatter-add (K5) against their "
+          "plain versions at the GCN and GraphSAGE blocks' shapes")
+    seg_results = segment_kernel_phase(
+        dev, card, [("GCN", gcn_eng), ("GraphSAGE", sage_eng)])
+    del gcn_eng, sage_eng
+    torch.cuda.empty_cache()
+
+    print("[10/38] small input, PinSAGE: card against CPU")
     small_input_phase(dev, model="pinsage",
                       sample_type=SampleType.RANDOM_WALK)
 
-    print("[11/37] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
+    print("[11/38] PinSAGE, 3 x 5 walks W=4 L=3, 1M-node graph, 2 epochs + "
           "evaluate")
     pinsage_launches = pinsage_phase(dev, card, ds)
 
-    print("[12/37] small input, GAT: card against CPU, eval-mode logits and "
+    print("[12/38] small input, GAT: card against CPU, eval-mode logits and "
           "gradients")
     gat_small_phase(dev)
 
-    print("[13/37] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
+    print("[13/38] GAT 8 x 256 at [25, 10], 1M-node graph, 2 epochs + "
           "evaluate")
     gat_launches = gat_phase(dev, card, ds)
 
-    print("[14/37] small input, host-resident table, PRESAMPLE and "
+    print("[14/38] small input, host-resident table, PRESAMPLE and "
           "DYNAMIC_CACHE: card against CPU")
     cache_small_phase(dev)
 
-    print("[15/37] GraphSAGE main path, feature table in host memory: hit "
+    print("[15/38] GraphSAGE main path, feature table in host memory: hit "
           "rates, pipelined cache epochs, host path, dynamic cache")
     cache_launches = cache_phase(dev, card, ds)
 
-    print("[16/37] small input, KHOP1 and the weighted samplers: card "
+    print("[16/38] small input, KHOP1 and the weighted samplers: card "
           "against CPU; the direct-index dedup at the main path's shapes")
     other_samplers_small_phase(dev)
     remap_phase(dev, card, ds)
 
-    print("[17/37] KHOP1 and the weighted samplers at full width, 1M-node "
+    print("[17/38] KHOP1 and the weighted samplers at full width, 1M-node "
           "graph")
     other_launches = other_samplers_phase(dev, card, ds)
 
-    print("[18/37] small input, arch0 (host sampling): card against CPU")
+    print("[18/38] small input, arch0 (host sampling): card against CPU")
     arch0_small_phase(dev)
 
-    print("[19/37] arch0 at the bench configuration, 1M-node graph")
+    print("[19/38] arch0 at the bench configuration, 1M-node graph")
     arch0_launches = arch0_phase(dev, card, ds)
     print(f"  smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     t20 = time.perf_counter()
-    print("[20/37] entry points: observed epoch, session, checkpoint (small "
+    print("[20/38] entry points: observed epoch, session, checkpoint (small "
           "input); the app at the bench configuration")
     observe_small_phase(dev)
     app_launches = app_phase(card)
 
-    print("[21/37] Table 1 through the port's app, 2 epochs a row: runs "
+    print("[21/38] Table 1 through the port's app, 2 epochs a row: runs "
           "later, beside phases 32-34")
     print(f"  phase 20: {time.perf_counter() - t20:.1f} s; smoke wall time "
           f"{time.perf_counter() - t_start:.1f} s")
 
     t22 = time.perf_counter()
-    print("[22/37] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
+    print("[22/38] small input, arch5 S=1 T=1 and T=2, arch6 W=1 and W=2 on "
           "one card: card against CPU")
     multi_device_small_phase(dev)
 
-    print("[23/37] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
+    print("[23/38] arch5 (table on the trainer, cache mode) and arch6 (W=1, "
           "W=2) at the main path's configuration, in a process of their own")
     torch.cuda.empty_cache()
     factored_launches = factored_epochs_phase(card)
 
-    print("[24/37] row gather against plain version at the arch5 and arch6 "
+    print("[24/38] row gather against plain version at the arch5 and arch6 "
           "paths' shapes")
     max_err = max(max_err, factored_kernel_phase(dev, card, ds))
 
-    print("[25/37] arch5 S=1 T=2 on one card: the data-parallel step against "
+    print("[25/38] arch5 S=1 T=2 on one card: the data-parallel step against "
           "one replica's")
     arch5_reduce_phase(dev, ds)
 
-    print("[26/37] the switcher (forced tail) and the async trainers, one "
+    print("[26/38] the switcher (forced tail) and the async trainers, one "
           "epoch each")
     switcher_async_phase(dev, card, ds)
     del ds
     torch.cuda.empty_cache()
 
-    print("[28/37] the app on arch5, both roles on one card, 2 epochs")
+    print("[28/38] the app on arch5, both roles on one card, 2 epochs")
     app5_launches = app5_phase(card)
     print(f"  phases 22-28: {time.perf_counter() - t22:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 
     t29 = time.perf_counter()
-    print("[36/37] the papers100M- and uk-union-scale tools at 2,000,000 "
+    print("[36/38] the papers100M- and uk-union-scale tools at 2,000,000 "
           "nodes: started now, beside phases 29-34, checked after them")
     # removed at exit, after the interpreter has joined the thread
     scale_data = tempfile.mkdtemp(prefix="fgnn_scale_smoke_")
     atexit.register(shutil.rmtree, scale_data, ignore_errors=True)
     scale_pool = ThreadPoolExecutor(1)
     scale_future = scale_pool.submit(scale_tools_run, scale_data)
-    print("[27/37] the reference's multi-device gates (tools.multichip) over "
+    print("[27/38] the reference's multi-device gates (tools.multichip) over "
           "every card: started now, beside phases 29-31, checked after them")
     gates_pool = ThreadPoolExecutor(1)
     gates_future = gates_pool.submit(multichip_run)
 
-    print("[29/37] a process per role on one card, small input: against one "
+    print("[29/38] a process per role on one card, small input: against one "
           "process, bit for bit")
     processes_small_phase()
 
-    print("[30/37] a process per role at the bench configuration, 3 epochs; "
+    print("[30/38] a process per role at the bench configuration, 2 epochs; "
           "the data-parallel demo as 2 processes")
     mp_launches = multiprocess_phase(card)
 
-    print("[31/37] Table 4's arch5 and arch6 rows at n = 2 through the port's "
+    print("[31/38] Table 4's arch5 and arch6 rows at n = 2 through the port's "
           "runner")
     runner_launches = runner_phase(card)
-    print("[27/37] the reference's multi-device gates: their checks")
+    print("[27/38] the reference's multi-device gates: their checks")
     multichip_phase(gates_future.result())
     gates_pool.shutdown()
     print(f"  phases 29-31: {time.perf_counter() - t29:.1f} s; smoke wall "
           f"time {time.perf_counter() - t_start:.1f} s")
 
     t32 = time.perf_counter()
-    print("[21/37] and [34/37]: Table 1 and the app runners through the "
+    print("[21/38] and [34/38]: Table 1 and the app runners through the "
           "port's runner (fig17b, table6, fig4a with fig4b, fig12, the "
           "auto_runner breakdown suite): started now, beside phases 32-33, "
           "checked after them")
-    print("[37/37] the port's benchmark, the main-path cell at 2 measured "
+    print("[37/38] the port's benchmark, the main-path cell at 2 measured "
           "epochs: started now, beside phases 32-34, checked after them")
     with ThreadPoolExecutor(7) as pool:
         table1_run = start_table1(pool)
         runs = start_app_runners(pool)
         bench_future = pool.submit(bench_run)
-        print("[32/37] converted data on the card: the products fixture "
+        print("[32/38] converted data on the card: the products fixture "
               "through the port's datagen, 8 epochs, one step against the "
               "CPU")
         datagen_launches = datagen_phase(dev)
 
-        print("[33/37] the cache-policy experiments in process at their "
+        print("[33/38] the cache-policy experiments in process at their "
               "defaults: fig10, fig11, fig5a, table2; fig5b at 200,000 "
               "nodes")
         cache_exps_phase()
 
-        print("[34/37] the app runners: waiting for them, then their checks")
+        print("[34/38] the app runners: waiting for them, then their checks")
         apps_launches = app_runners_phase(runs)
-        print("[21/37] Table 1: waiting for it, then its checks")
+        print("[21/38] Table 1: waiting for it, then its checks")
         table1_launches = table1_phase(card, table1_run.result())
-        print("[37/37] the port's benchmark: waiting for it, then its checks")
+        print("[37/38] the port's benchmark: waiting for it, then its checks")
         bench_launches = bench_phase(bench_future.result())
     print(f"  phases 21 and 32-34: {time.perf_counter() - t32:.1f} s")
 
     t36 = time.perf_counter()
-    print("[36/37] the papers100M- and uk-union-scale tools: waiting for them, "
+    print("[36/38] the papers100M- and uk-union-scale tools: waiting for them, "
           "then their checks; K1 at their shapes against its plain version")
     scale_launches = scale_tools_phase(card, scale_future.result())
     scale_pool.shutdown()
@@ -2953,7 +3024,7 @@ def main() -> int:
     print(f"  phase 36: {time.perf_counter() - t36:.1f} s after phase 34; "
           f"smoke wall time {time.perf_counter() - t_start:.1f} s")
 
-    print("[35/37] bandwidth_bench at its defaults: host gather, memcpy, H2D, "
+    print("[35/38] bandwidth_bench at its defaults: host gather, memcpy, H2D, "
           "K1 against index_select")
     bandwidth_phase()
     print(f"  phases 32-36: {time.perf_counter() - t32:.1f} s; smoke wall "
@@ -2961,7 +3032,13 @@ def main() -> int:
 
     best = min(s_timing, key=lambda c: s_timing[c]["ms"])
     print(f"  stream_add_one times below: chunk {best}, the fastest; "
-          "gather_rows times: the feature-gather shape")
+          "gather_rows times: the feature-gather shape; segment_sum_rows and "
+          "scatter_add_rows times: GCN's layer-1 block (2,492,160 slots, "
+          "float32, 256 wide), the largest; launches: phases 5 and 9")
+    gcn1 = seg_results["GCN layer 1 regular"]
+    seg_err = {name: max(r[name]["max_abs_err"] for r in seg_results.values()
+                         if name in r)
+               for name in ("segment_sum_rows", "scatter_add_rows")}
     print(json.dumps({"kernels": [dict(
         name="gather_rows",
         route="cuda",
@@ -2985,7 +3062,21 @@ def main() -> int:
         max_abs_err=s_err,
         bound_by="bytes",
         **s_timing[best],
-    )]}))
+    )] + [dict(
+        name=name,
+        route="cuda",
+        source=f"fgnn_tpu_torch/csrc/{name}.cu",
+        replaces=replaces,
+        launches=(sage_counts.get(name, 0) + gcn_counts.get(name, 0)),
+        max_abs_err=seg_err[name],
+        bound_by="bytes",
+        **{k: gcn1[name][k]
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+    ) for name, replaces in (
+        ("segment_sum_rows", "fgnn_tpu/models/aggregate.py:33 (no "
+         "pallas_call: the XLA ops of segment_agg's regular branch)"),
+        ("scatter_add_rows", "fgnn_tpu/ops/extract.py:19 (no pallas_call: "
+         "XLA's scatter-add, the VJP of device_gather)"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,9 +2,12 @@
 ``fgnn_tpu/models/aggregate.py``).
 
 Row gathers (``gather_src`` where it gathers, and the tiered ``dst_invperm``
-unpermute) go through the Hopper row-gather kernel; the reductions, the
-weighted mean and the edge softmax are torch ops, as the reference leaves
-them to XLA.
+unpermute) go through the Hopper row-gather kernel, and their backward
+through the row scatter-add kernel. :func:`gather_segment_agg` gathers and
+sums a regular block's messages with the row gather and the segment-sum
+kernel, backward by the scatter-add's regular mode. The other reductions,
+the weighted mean and the edge softmax are torch ops, as the reference
+leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 
 from ..ops.gather import GatherRows
 from ..ops.sampling import Block
+from ..ops.segment import GatherSegmentSum
 
 
 def _regular(block: Block, dst_cap: int) -> bool:
@@ -43,6 +47,30 @@ def gather_src(h_src: torch.Tensor, block: Block) -> torch.Tensor:
         off = block.src_slice_offset
         return h_src[off: off + block.src_local.shape[0]]
     return GatherRows.apply(h_src, block.src_local)
+
+
+def gather_segment_agg(h: torch.Tensor, block: Block, dst_cap: int,
+                       mode: str = "sum") -> torch.Tensor:
+    """``segment_agg(gather_src(h, block), block, dst_cap, mode=mode)`` for
+    mode 'sum' or 'mean'.
+
+    A regular block whose sources are gathered (no ``src_slice_offset``)
+    takes :class:`GatherSegmentSum`: the gathered ``[E, D]`` messages live
+    only inside its forward, and its backward scatters the ``[dst_cap, D]``
+    gradient straight into ``h``'s rows. The mean divides by the valid slot
+    count outside, as ``segment_agg`` does. Every other layout goes through
+    ``gather_src`` and ``segment_agg``.
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"unknown gather_segment_agg mode {mode!r}")
+    if not _regular(block, dst_cap) or block.src_slice_offset is not None:
+        return segment_agg(gather_src(h, block), block, dst_cap, mode=mode)
+    K = block.slots_per_dst
+    agg = GatherSegmentSum.apply(h, block.src_local, block.mask, dst_cap, K)
+    if mode == "sum":
+        return agg
+    den = block.mask.reshape(dst_cap, K).sum(1).to(h.dtype)
+    return agg / den.clamp(min=1)[:, None]
 
 
 def segment_agg(

@@ -18,8 +18,8 @@ from torch import nn
 
 from ..ops.gather import GatherRows
 from ..ops.sampling import Block, SampledBatch
-from .aggregate import (gather_src, in_degrees, out_degrees, segment_agg,
-                        segment_softmax)
+from .aggregate import (gather_segment_agg, gather_src, in_degrees,
+                        out_degrees, segment_agg, segment_softmax)
 
 
 def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]):
@@ -78,8 +78,7 @@ class SAGEConv(nn.Module):
         nn.init.zeros_(self.fc_self.bias)
 
     def forward(self, block: Block, h: torch.Tensor, dst_cap: int) -> torch.Tensor:
-        msgs = gather_src(h, block)
-        agg = segment_agg(msgs, block, dst_cap, mode="mean")
+        agg = gather_segment_agg(h, block, dst_cap, mode="mean")
         out = (_dense(self.fc_self, h[:dst_cap], self.dtype)
                + _dense(self.fc_neigh, agg, self.dtype))
         if self.activation is not None:
@@ -113,7 +112,7 @@ class GraphConv(nn.Module):
         src_cap = h.shape[0]
         h = _dense(self.weight, h, self.dtype)
         h = h * torch.rsqrt(out_degrees(block, src_cap).clamp(min=1))[:, None]
-        agg = segment_agg(gather_src(h, block), block, dst_cap, mode="sum")
+        agg = gather_segment_agg(h, block, dst_cap, mode="sum")
         agg = agg * torch.rsqrt(in_degrees(block, dst_cap).clamp(min=1))[:, None]
         agg = agg + self.bias
         if self.activation is not None:

@@ -86,10 +86,12 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 class GatherRows(torch.autograd.Function):
     """Differentiable :func:`gather_rows`.
 
-    The backward is the JAX reference's: XLA's scatter-add of the output
-    gradient into the table rows, here ``index_add_`` of the valid rows into
-    zeros. It accumulates in float32 and casts back to the table's dtype, so
-    bf16 rows that many ids share do not lose their small terms.
+    The backward is the JAX reference's, XLA's scatter-add of the output
+    gradient into the table rows: ``scatter_add_rows`` (K5,
+    ``csrc/scatter_add_rows.cu``) of the valid rows into zeros, whose plain
+    version is ``index_add_``. It accumulates in float32 and casts back to
+    the table's dtype, so bf16 rows that many ids share do not lose their
+    small terms.
     """
 
     @staticmethod
@@ -102,10 +104,8 @@ class GatherRows(torch.autograd.Function):
     def backward(ctx, grad_out: torch.Tensor):
         if not ctx.needs_input_grad[0]:
             return None, None
+        from .segment import scatter_add_rows   # segment imports this module
+
         (ids,) = ctx.saved_tensors
-        valid = (ids >= 0).unsqueeze(1)
-        grad = torch.zeros((ctx.num_rows, grad_out.shape[1]),
-                           dtype=torch.float32, device=grad_out.device)
-        grad.index_add_(0, ids.clamp(min=0).long(),
-                        grad_out.float().masked_fill(~valid, 0))
-        return grad.to(grad_out.dtype), None
+        return scatter_add_rows(grad_out.contiguous(), ids,
+                                ctx.num_rows), None
