@@ -240,14 +240,21 @@ Phases, none of which catches a failure (any failure exits non-zero):
      phases 9 and 5's engines, every block as the training step takes it
      (``fgnn_tpu_torch.tools.segment_kernels``): GCN's three regular blocks
      (float32, 256 / 256 / 172 wide) and GraphSAGE's regular hop-0 block
-     (bf16, 256 wide) through K4 and K5's regular mode, GraphSAGE's
-     ``dst_invperm`` unpermute (bf16, 128 wide) through K5's general mode.
-     K4 and atomic K5 against their plain versions within the float32
-     summation-order bound of each element, and bit-equal on
-     integer-valued rows; K5 under deterministic algorithms bit-equal over
-     two runs and to the plain version on integer-valued rows; each timed
-     beside its plain version, its library call (``where`` + ``sum``,
-     ``index_add_``) and its bound. It runs right after phase 9.
+     (bf16, 256 wide) through K4 and K5 with the block's K and mask,
+     GraphSAGE's ``dst_invperm`` unpermute (bf16, 128 wide) through K5
+     with K = 1; GCN's four K1 gathers (the input features, each layer's
+     messages). K1 bit-equal to its plain version; K4 and K5 against
+     theirs within the float32 summation-order bound of each element, and
+     bit-equal on integer-valued rows; K5 under deterministic algorithms
+     bit-equal over two runs and to the plain version on integer-valued
+     rows; each timed beside its plain version, its library call
+     (``where`` + ``sum``, ``index_add_``, ``index_select``) and its bound,
+     K5 split into its CSR stages and its sum, its deterministic mode into
+     the sort and the sum. Then K5's edge cases, checked the same way
+     (``segment_kernels.edge_cases``): a permutation, repeats with padding,
+     a masked block, rows that receive no slot, rows of 1,000 and 100,000
+     slots, an all-padding block, each at widths 172 and 7 in float32 and
+     bf16 and 256 wide off the 8-byte grid. It runs right after phase 9.
 The app and role processes read the bytecode this process compiles
 (``fgnn_tpu_torch/_build/pycache``): without it each one compiles torch's
 sources again on a machine whose packages hold none.
@@ -845,12 +852,18 @@ def gcn_phase(dev, card, ds):
 def segment_kernel_phase(dev, card, engines):
     """Phase 38 (see the module docstring). Returns the results of
     ``tools.segment_kernels.run``."""
+    import torch
     from fgnn_tpu_torch.tools import segment_kernels
 
     t0 = time.perf_counter()
     results = segment_kernels.run(dev, card, engines)
     print(f"  {len(results)} blocks checked and timed in "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    edges = segment_kernels.edge_cases(dev, torch.Generator(dev).manual_seed(1))
+    print(f"  {len(edges)} K5 edge cases in {time.perf_counter() - t0:.1f} s; "
+          "largest error "
+          f"{max(max(e.values()) for e in edges.values()):.3g}")
     return results
 
 

@@ -88,10 +88,10 @@ class GatherRows(torch.autograd.Function):
 
     The backward is the JAX reference's, XLA's scatter-add of the output
     gradient into the table rows: ``scatter_add_rows`` (K5,
-    ``csrc/scatter_add_rows.cu``) of the valid rows into zeros, whose plain
-    version is ``index_add_``. It accumulates in float32 and casts back to
-    the table's dtype, so bf16 rows that many ids share do not lose their
-    small terms.
+    ``csrc/scatter_add_rows.cu``), which sums each table row's gradient
+    rows, and whose plain version is ``index_add_`` into zeros. It
+    accumulates in float32 and writes the table's dtype, so bf16 rows that
+    many ids share do not lose their small terms.
     """
 
     @staticmethod

@@ -11,13 +11,17 @@ plain version.
   ``max |port - ref| <= tol * max |ref|`` per array: float32 1e-5 (sums in
   another order than XLA's), bfloat16 2e-2 (bf16 keeps 8 bits, and the
   frameworks round at other places).
-* The deterministic path's sort and segment pointers with the plain
-  explicit-segment sum, bit-equal to ``index_add_`` on integer-valued rows
-  (every partial sum is exact, so the order cannot show).
+* The deterministic path's sort and segment pointers with K5's sum stage
+  (``csr_sum_rows``) and its plain version, bit-equal to ``index_add_`` on
+  integer-valued rows (every partial sum is exact, so the order cannot
+  show).
 * Off the CPU a wrapper launches its kernel or raises; CPU calls count no
-  launch.
+  launch. Each bound C symbol takes as many ctypes arguments as its
+  source declares.
 """
+import ctypes
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +35,7 @@ from fgnn_tpu.ops.sampling import Block as JBlock
 from fgnn_tpu_torch.models import aggregate as tagg
 from fgnn_tpu_torch.models.convert import params_from_flax
 from fgnn_tpu_torch.models.gnn import GraphConv, SAGEConv
-from fgnn_tpu_torch.ops import cuda_lib, segment
+from fgnn_tpu_torch.ops import cuda_lib, gather, segment, stream
 from fgnn_tpu_torch.ops.gather import GatherRows
 from fgnn_tpu_torch.ops.sampling import Block
 from torch_parity import block_to_torch, to_numpy
@@ -199,8 +203,8 @@ def test_layer_matches_flax_with_gradients(layer, dtype, K):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_sorted_segments_sum_equals_index_add(dtype, K, masked):
     """Integer-valued rows keep every float32 partial sum exact (and every
-    total within bf16's 8 bits), so the explicit-segment sum over the sorted
-    slots must equal index_add_ bit for bit."""
+    total within bf16's 8 bits), so K5's sum stage over the sorted slots
+    must equal index_add_ bit for bit."""
     rng = np.random.default_rng(K + 2 * masked)
     num_dst, num_rows, D = 50, 30, 12
     ids = rng.integers(0, num_rows // 3, num_dst * K).astype(np.int32)
@@ -214,19 +218,20 @@ def test_sorted_segments_sum_equals_index_add(dtype, K, masked):
     valid = ids >= 0
     if mask is not None:
         valid &= mask
+    assert ptr.dtype == idx.dtype == torch.int32
     assert ptr.shape == (num_rows + 1,) and ptr[0] == 0
     assert int(ptr[-1]) == int(valid.sum())
     slots = torch.nonzero(valid)[:, 0]
     for r in range(num_rows):
         mine = slots[ids[slots] == r]
         # each row's slots in ascending order, as the grad_out rows they read
-        assert torch.equal(idx[ptr[r]:ptr[r + 1]], mine // K)
+        assert torch.equal(idx[ptr[r]:ptr[r + 1]].long(), mine // K)
 
     out = segment.segment_sum_rows_by_ptr_reference(grad_out, ptr, idx)
     ref = segment.scatter_add_rows_reference(grad_out, ids, num_rows, K, mask)
     assert out.dtype == ref.dtype == DTYPES[dtype]
     assert torch.equal(out, ref)
-    assert torch.equal(segment.segment_sum_rows_by_ptr(grad_out, ptr, idx), out)
+    assert torch.equal(segment.csr_sum_rows(grad_out, ptr, idx), out)
 
 
 def test_scatter_add_rows_under_deterministic_algorithms_on_cpu():
@@ -274,12 +279,12 @@ def test_non_cpu_tensors_never_fall_back():
     rows = torch.empty((12, 4), device="meta")
     mask = torch.zeros(12, dtype=torch.bool, device="meta")
     ids = torch.zeros(12, dtype=torch.int32, device="meta")
-    ptr = torch.zeros(5, dtype=torch.int64, device="meta")
+    ptr = torch.zeros(5, dtype=torch.int32, device="meta")
     before = dict(cuda_lib.launches)
     for call in (
         lambda: segment.segment_sum_rows(rows, mask, 4, 3),
         lambda: segment.segment_sum_rows(torch.zeros(12, 4), mask, 4, 3),
-        lambda: segment.segment_sum_rows_by_ptr(rows, ptr, ids.long()),
+        lambda: segment.csr_sum_rows(rows, ptr, ids),
         lambda: segment.scatter_add_rows(rows, ids, 7),
         lambda: segment.scatter_add_rows(rows[:4], ids, 7, 3, mask),
         lambda: segment.scatter_add_rows(torch.zeros(4, 4), ids, 7, 3),
@@ -324,9 +329,67 @@ def test_kernel_sources_are_in_the_package(name):
     src = os.path.join(cuda_lib.CSRC_DIR, f"{name}.cu")
     with open(src) as f:
         text = f.read()
-    symbols = {segment.SEGMENT_KERNEL: ("fgnn_segment_sum_rows(",
-                                        "fgnn_segment_sum_rows_by_ptr("),
-               segment.SCATTER_KERNEL: ("fgnn_scatter_add_rows(",)}[name]
-    for sym in symbols:
-        assert f'extern "C" int {sym}' in text
+    assert set(extern_params(text)) == set(BOUND[name][1])
+    assert "fgnn_segment_sum_rows_by_ptr" not in text
     assert cuda_lib.library_path(name).startswith(cuda_lib.BUILD_DIR)
+
+
+# kernel -> its module's binder and the C symbols it binds
+BOUND = {
+    gather.KERNEL: (gather._kernel, ("fgnn_gather_rows",)),
+    stream.KERNEL: (stream._lib, ("fgnn_stream_add_one",
+                                  "fgnn_stream_add_one_config")),
+    segment.SEGMENT_KERNEL: (segment._segment_kernel,
+                             ("fgnn_segment_sum_rows",)),
+    segment.SCATTER_KERNEL: (segment._scatter_kernels,
+                             ("fgnn_scatter_add_rows",
+                              "fgnn_scatter_add_rows_by_ptr",
+                              "fgnn_scatter_add_rows_workspace")),
+}
+
+
+def extern_params(text):
+    """``{symbol: parameter count}`` of every ``extern "C"`` function of a
+    source."""
+    out = {}
+    for m in re.finditer(r'extern "C" [\w]+ (fgnn_\w+)\(([^)]*)\)', text):
+        params = m.group(2).strip()
+        out[m.group(1)] = 0 if params in ("", "void") else params.count(",") + 1
+    return out
+
+
+class _FakeLib:
+    """Stands in for a loaded library: each attribute a function object
+    on which a binder sets ``argtypes`` and ``restype``."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return self.fns.setdefault(name, type("Fn", (), {})())
+
+
+@pytest.mark.parametrize("name", [gather.KERNEL, stream.KERNEL,
+                                  segment.SEGMENT_KERNEL,
+                                  segment.SCATTER_KERNEL])
+def test_bound_symbols_take_the_sources_parameter_count(name, monkeypatch):
+    """Each C symbol a wrapper binds gets one ctypes argument type a
+    parameter of its ``extern "C"`` declaration: a missing one would pass
+    the arguments after it in the wrong registers."""
+    with open(os.path.join(cuda_lib.CSRC_DIR, f"{name}.cu")) as f:
+        params = extern_params(f.read())
+    binder, symbols = BOUND[name]
+    lib = _FakeLib()
+    monkeypatch.setattr(cuda_lib, "load", lambda n: lib if n == name else None)
+    binder.cache_clear()
+    try:
+        binder()
+    finally:
+        binder.cache_clear()
+    assert set(lib.fns) == set(symbols)
+    for sym, fn in lib.fns.items():
+        assert len(fn.argtypes) == params[sym], sym
+        assert all(isinstance(t, type) and issubclass(t, ctypes._SimpleCData)
+                   for t in fn.argtypes), sym
